@@ -4,12 +4,22 @@
 
 Phases, each printed with its seconds:
   1. device   the card (nvidia-smi name and power limit), torch, nvcc;
-  2. build    nvcc builds every kernel of the port into build/;
+  2. build    nvcc builds every kernel of the port (K1, K2) into build/;
   3. K1       the attention_core CUDA kernel against its plain PyTorch
               version at the five attention shapes of one r5blend U-Net
               forward (B=256, 4 heads) in fp32 and bf16, with its time,
               the plain version's, F.scaled_dot_product_attention's (timed
               as a yardstick only) and the least time the card could take;
+  K2, env     the sample_banked CUDA kernel against its plain version at
+              B=1024 on the 16-track bank, on random poses (edges and
+              off-field included) and later on the env's poses after 50
+              steps: every output equal, with its time, the plain
+              version's and the bound; the golden car states rendered on
+              the card within 30 bytes a frame of golden_frames.npz; 16
+              envs x 40 steps on the card against the CPU (rewards, tiles
+              and done flags equal, positions within ENV_POS_TOL, frames
+              within 30 bytes); env_only and env_render at 1024 envs x 200
+              steps (steps/s, one K2 launch per rendered step);
   4. policy   load artifacts/r5blend_best and serve 256 envs x 50 frames
               through the DDIM-10 ring policy (10 denoises), fed the
               golden frames of tests/fixtures; the run must launch K1
@@ -20,6 +30,12 @@ Phases, each printed with its seconds:
               the fp32 plain path; a bf16 probe (one ulp on a few of K1's
               outputs) shows how far such a difference moves the actions;
               frames/s and the time of one denoise in fp32 and under amp;
+  closed loop r5blend drives 256 envs on the 4-track bank through the env,
+              K2 and K1 (rollout_policy with the ring policy), 50 frames in
+              fp32 and under amp: frames/s, exactly 500 K1 and 51 K2
+              launches (50 frames and the reset), fp32 actions within
+              ACTION_TOL of the plain path's (both kernels plain), and the
+              driving metrics of a 500-frame amp run;
   5. cpu      a small rollout on the card against the same on the CPU.
 The line before the last holds the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Any failed check exits non-zero first.
@@ -75,6 +91,22 @@ AMP_FAR = 0.05
 AMP_MEAN_TOL = 0.025
 AMP_SHARE_TOL = 0.10
 
+GOLDEN_STATES = os.path.join(HERE, "tests", "fixtures", "golden_states.pkl")
+K2_PIXELS = 72 * 128
+# frames: at most 30 of 27,648 bytes may differ (tests/test_render_golden.py):
+# the polygon edge test compares a float32 cross product with 1e-6, and an
+# ulp of a vertex moves edge pixels
+FRAME_BUDGET = 30
+# env on the card against the CPU: 16 envs x 40 steps. CUDA's sin, cos and
+# atan2 differ from the CPU's by an ulp on some angles and the steps
+# compound that; 1e-3 world units (1.5e-6 of the playfield's width) is
+# ~100x what 40 steps give on an H100 (7.6e-6) and ~250x the CPU against
+# JAX (tests/test_torch_env.py: 3.8e-6), and far below the 6.67-unit road
+# half-width that decides the tile counts held equal here
+ENV_POS_TOL = 1e-3
+ENV_B, ENV_STEPS, ENV_TRACKS, ENV_REPEATS = 1024, 200, 16, 2
+LOOP_TRACKS, DRIVE_FRAMES = 4, 500
+
 
 class Failed(Exception):
     pass
@@ -107,6 +139,31 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of fn(): `iters` calls captured in one CUDA
+    graph and replayed between two events, so the host's launch cost
+    (tens of microseconds a wrapper call) does not pad small kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -156,11 +213,11 @@ def check_k1(cuda_ops, device):
             Dh = C // HEADS
             qh, kh, vh = (t.reshape(N_ENVS, T, HEADS, Dh).transpose(1, 2)
                           .contiguous() for t in (q, k, v))
-            ms = cuda_ms(lambda: cuda_ops.attention_core_cuda(q, k, v, HEADS),
+            ms = graph_ms(lambda: cuda_ops.attention_core_cuda(q, k, v, HEADS),
                          20)
-            plain_ms = cuda_ms(
+            plain_ms = graph_ms(
                 lambda: cuda_ops.attention_core_ref(q, k, v, HEADS), 10)
-            lib_ms = cuda_ms(
+            lib_ms = graph_ms(
                 lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
             byte_ms, op_ms = k1_floor_ms(N_ENVS, T, C, dtype)
             bound_ms, bound_by = bound(byte_ms, op_ms)
@@ -277,6 +334,111 @@ class NudgedAttention:
         return (bits + step).view(torch.bfloat16)
 
 
+def k2_bound(tex, ids, c, s, pos, rx, ry):
+    """(bound ms, side, distinct texels, bytes) of one K2 call on these
+    inputs: the output written once (int32), each input read once, and of
+    the bank only the distinct texels under the in-field pixels; ~12 flops
+    a pixel at the float32 rate."""
+    from state_policy_diffusionmodel_torch.render import cuda_sampler
+
+    B, T = ids.shape[0], tex.shape[-1]
+    fx, fy = cuda_sampler.texel_coords(c, s, pos, rx, ry, T)
+    infield = (fx >= 0) & (fx < T) & (fy >= 0) & (fy < T)
+    fi = fx.floor().to(torch.int64).clamp(0, T - 1)
+    fj = fy.floor().to(torch.int64).clamp(0, T - 1)
+    key = (ids.to(torch.int64)[:, None, None] * T + fi) * T + fj
+    texels = int(torch.unique(key[infield]).numel())
+    n_bytes = B * K2_PIXELS * 4 + texels + B * (4 + 4 + 4 + 8) \
+        + 2 * K2_PIXELS * 4
+    ms, side = bound(n_bytes / HBM_BYTES_PER_S * 1e3,
+                     B * K2_PIXELS * 12 / PEAK_OPS[torch.float32] * 1e3)
+    return ms, side, texels, n_bytes
+
+
+def check_k2(cases):
+    """K2 against its plain version on each named case of inputs: every
+    int32 output equal, with its time, the plain version's and the bound.
+    Returns per-case records."""
+    from state_policy_diffusionmodel_torch.render import cuda_sampler as ks
+
+    records = []
+    for name, args in cases:
+        before = ks.sample_banked.launches
+        got = ks.sample_banked_cuda(*args)
+        want = ks.sample_banked_ref(*args)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        err = int((got - want).abs().max())
+        if mismatches:
+            raise Failed(f"K2 {name}: {mismatches} outputs differ from the "
+                         "plain version")
+        ms = graph_ms(lambda: ks.sample_banked_cuda(*args), 50)
+        plain_ms = graph_ms(lambda: ks.sample_banked_ref(*args), 10)
+        bound_ms, side, texels, n_bytes = k2_bound(*args)
+        # the check, 3 warm-up calls and 50 captured in the timing graph
+        launches = ks.sample_banked.launches - before
+        rec = dict(case=name, B=int(args[1].shape[0]), launches=launches,
+                   mismatches=mismatches,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=side, texels=texels,
+                   bytes=n_bytes, in_field=float((want > 0).float().mean()))
+        records.append(rec)
+        print(f"  K2 {name}: B={rec['B']}, 0 of {got.numel()} outputs differ"
+              f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({side}: {n_bytes / 1e6:.1f} MB, "
+              f"{texels} distinct texels); {launches} launches in this "
+              "check", flush=True)
+    return records
+
+
+def random_poses(B, device, seed):
+    """Camera scalars over the whole playfield, 10% beyond its edges."""
+    from state_policy_diffusionmodel_torch.track import PLAYFIELD
+
+    gen = torch.Generator().manual_seed(seed)
+    ang = torch.rand(B, generator=gen) * (2 * np.pi) - np.pi
+    pos = (torch.rand((B, 2), generator=gen) * 2 - 1) * (1.1 * PLAYFIELD)
+    pos[:8] = torch.tensor([[PLAYFIELD, 0.0], [-PLAYFIELD, 50.0],
+                            [0.0, PLAYFIELD], [10.0, -PLAYFIELD],
+                            [PLAYFIELD, PLAYFIELD], [PLAYFIELD + 40, 0.0],
+                            [-900.0, 0.0], [0.0, 700.0]])
+    return (torch.cos(ang).to(device), torch.sin(ang).to(device),
+            pos.to(device))
+
+
+def env_actions(n_steps, B, seed):
+    rng = np.random.default_rng(seed)
+    a = np.stack([rng.uniform(-0.4, 0.4, (n_steps, B)),
+                  rng.uniform(0.3, 1.0, (n_steps, B)),
+                  rng.choice([0.0, 0.0, 0.0, 0.4], (n_steps, B))], -1)
+    return torch.from_numpy(a.astype(np.float32))
+
+
+def env_trace(device, B, n_steps, seed):
+    """B envs on the 4-track bank, n_steps of seeded actions: per step the
+    rewards, done flags, tile counts, positions and both frames, on the
+    host."""
+    from state_policy_diffusionmodel_torch.envs import vector
+    from state_policy_diffusionmodel_torch.track import load_or_build_bank
+
+    bank = load_or_build_bank(4, bake=True, device=device)
+    ids = (torch.arange(B) % 4).to(torch.int32).to(device)
+    acts = env_actions(n_steps, B, seed).to(device)
+    st, _ = vector.reset_batch(bank, track_ids=ids, device=device)
+    out = []
+    for k in range(n_steps):
+        st, res = vector.step_batch(st, bank, acts[k], track_ids=ids,
+                                    device=device)
+        out.append([t.cpu() for t in (res.reward, res.done, st.tile_count,
+                                      st.car.pos, res.obs, res.augmented)])
+    return out
+
+
+def frame_bytes(a, b):
+    """Per frame, the count of bytes that differ."""
+    return (a != b).reshape(a.shape[0], -1).sum(-1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -290,9 +452,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
 
-    from state_policy_diffusionmodel_torch import diffusion
+    from state_policy_diffusionmodel_torch import (
+        bench, diffusion, physics, track,
+    )
+    from state_policy_diffusionmodel_torch.envs import vector
     from state_policy_diffusionmodel_torch.kernels import build
     from state_policy_diffusionmodel_torch.models import cuda_ops
+    from state_policy_diffusionmodel_torch.render import cuda_sampler, raster
+    from state_policy_diffusionmodel_torch.track import load_or_build_bank
     from state_policy_diffusionmodel_torch.train import load_run
 
     with phase("device"):
@@ -316,6 +483,99 @@ def main() -> int:
 
     with phase("K1 attention_core vs plain"):
         k1 = check_k1(cuda_ops, device)
+
+    env_bank = load_or_build_bank(ENV_TRACKS, bake=True, device=device)
+    _, _, rx, ry = raster.pixel_planes(device)
+    env_ids = torch.arange(ENV_B, dtype=torch.int32,
+                           device=device) % ENV_TRACKS
+    with phase("K2 sample_banked vs plain, random poses"):
+        k2 = check_k2([("random poses", (
+            env_bank.tex, env_ids, *random_poses(ENV_B, device, args.seed),
+            rx, ry))])
+
+    with phase("golden frames on the card"):
+        cars = physics.load_pickled_states(GOLDEN_STATES, device)
+        golden_bank = track.stack([track.build(track.make_track(11),
+                                               device=device)])
+        counts = []
+        with np.load(GOLDEN) as g:
+            for i, car in enumerate(cars):
+                obs, augm = raster.render(car, golden_bank)
+                counts.append((int(frame_bytes(obs.cpu(),
+                                               torch.from_numpy(g[f"f{i}_obs"])
+                                               [None])[0]),
+                               int(frame_bytes(augm.cpu(), torch.from_numpy(
+                                   g[f"f{i}_augm"])[None])[0])))
+            car = cars[-1]
+            pts = torch.stack([torch.stack([
+                car.pos[0] + torch.tensor([i * 1.0, j * 2.0], device=device)
+                for j in range(5)]) for i in range(3)])
+            ov = raster.Overlay(points=pts, valid=torch.tensor(
+                [True, True, False], device=device))
+            obs, augm = raster.render(car, golden_bank, overlay=ov)
+            counts.append((
+                int(frame_bytes(obs.cpu(), torch.from_numpy(g["f5_obs"])[None])
+                    [0]),
+                int(frame_bytes(augm.cpu(),
+                                torch.from_numpy(g["f5_augm"])[None])[0])))
+        print(f"  {len(cars)} car states on track 11 and the overlay frame: "
+              f"bytes differing from golden_frames.npz (obs, augm): {counts}"
+              f" (budget {FRAME_BUDGET} of 27648)")
+        if max(max(c) for c in counts) > FRAME_BUDGET:
+            raise Failed(f"golden frames differ by {counts} bytes")
+
+    with phase("env card vs cpu"):
+        n_envs, n_steps = 16, 40
+        card = env_trace(device, n_envs, n_steps, args.seed)
+        host = env_trace(torch.device("cpu"), n_envs, n_steps, args.seed)
+        worst_pos, worst_bytes = 0.0, 0
+        for k, (a, b) in enumerate(zip(card, host)):
+            for name, x, y in zip(("reward", "done", "tiles"), a[:3], b[:3]):
+                if not torch.equal(x, y):
+                    raise Failed(f"env step {k}: {name} differs between the "
+                                 f"card and the CPU: {x} vs {y}")
+            worst_pos = max(worst_pos, (a[3] - b[3]).abs().max().item())
+            worst_bytes = max(worst_bytes, int(frame_bytes(a[4], b[4]).max()),
+                              int(frame_bytes(a[5], b[5]).max()))
+        print(f"  {n_envs} envs x {n_steps} steps: rewards, done flags and "
+              f"tile counts equal; positions differ by at most {worst_pos:.3g}"
+              f" (tol {ENV_POS_TOL}); frames by at most {worst_bytes} bytes "
+              f"(budget {FRAME_BUDGET}); tiles at the end "
+              f"{card[-1][2].tolist()}")
+        if worst_pos > ENV_POS_TOL or worst_bytes > FRAME_BUDGET:
+            raise Failed("env on the card parts from the CPU")
+
+    envs_run = {}
+    with phase("env throughput"):
+        for mode, render in (("env_only", False), ("env_render", True)):
+            # the path: counts to 0 just before, read just after
+            cuda_sampler.sample_banked.launches = 0
+            cuda_ops.attention_core.launches = 0
+            sps, times = bench.bench_env(ENV_B, ENV_STEPS, ENV_REPEATS,
+                                         render, ENV_TRACKS, device=device)
+            k2_n = cuda_sampler.sample_banked.launches
+            want = (ENV_REPEATS + 1) * ENV_STEPS if render else 0
+            envs_run[mode] = dict(steps_per_s=sps, seconds=times,
+                                  k2_launches=k2_n)
+            print(f"  {mode}: {ENV_B} envs x {ENV_STEPS} steps, "
+                  f"{ENV_TRACKS}-track bank: {sps:.1f} steps/s (runs "
+                  f"{[round(t, 3) for t in times]} s), K2 launches {k2_n}",
+                  flush=True)
+            if k2_n != want:
+                raise Failed(f"{mode}: {k2_n} K2 launches, expected {want}")
+
+    with phase("K2 sample_banked vs plain, env poses"):
+        st = vector.init_batch(env_bank, env_ids, device=device)
+        st, _ = vector.rollout_constant(
+            st, env_bank, env_actions(1, ENV_B, args.seed)[0].to(device), 50,
+            render=False, track_ids=env_ids, device=device)
+        scal = raster.camera_scalars(st.car)
+        k2 += check_k2([
+            ("env poses after 50 steps", (env_bank.tex, env_ids, *scal,
+                                          rx, ry)),
+            ("env poses after 50 steps, closed-loop batch", (
+                env_bank.tex, env_ids[:256].contiguous(),
+                *(t[:256].contiguous() for t in scal), rx, ry))])
 
     with phase("policy load"):
         policy, params, stats = load_run(RUN_DIR, device)
@@ -420,6 +680,87 @@ def main() -> int:
                 raise Failed(f"{tag} actions too far from the fp32 plain "
                              f"path: {sp}")
 
+    loop_bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=device)
+    loop_ids = torch.arange(N_ENVS, dtype=torch.int32,
+                            device=device) % LOOP_TRACKS
+
+    def drive(amp, n_frames, seed, warmup=0):
+        fn = diffusion.make_ring_policy(
+            policy, stats, sampler="ddim", num_inference_steps=10, amp=amp,
+            seed=seed, warmup=warmup)
+        states, _, out = vector.rollout_policy(
+            loop_bank, diffusion.env_policy(fn, params),
+            diffusion.init_ring_carry(policy, N_ENVS), n_frames,
+            auto_reset=False, track_ids=loop_ids, device=device)
+        return states, out
+
+    loop = {}
+    with phase("closed loop"):
+        denoises = N_FRAMES // policy.config.step_size
+        for amp in (False, True):
+            tag = "amp" if amp else "fp32"
+            drive(amp, 5, args.seed)                          # warm-up
+            torch.cuda.synchronize()
+            # the main path: counts to 0 just before, read just after
+            cuda_ops.attention_core.launches = 0
+            cuda_sampler.sample_banked.launches = 0
+            t0 = time.perf_counter()
+            states, out = drive(amp, N_FRAMES, args.seed)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            k1_n = cuda_ops.attention_core.launches
+            k2_n = cuda_sampler.sample_banked.launches
+            loop[tag] = dict(seconds=secs, fps=N_ENVS * N_FRAMES / secs,
+                             k1_launches=k1_n, k2_launches=k2_n,
+                             actions=out.actions,
+                             tiles=states.tile_count.float().mean().item())
+            print(f"  {tag}: r5blend drives {N_ENVS} envs x {N_FRAMES} "
+                  f"frames on the {LOOP_TRACKS}-track bank in {secs:.3f} s "
+                  f"= {loop[tag]['fps']:.1f} frames/s; K1 launches {k1_n}, "
+                  f"K2 launches {k2_n}", flush=True)
+            if k1_n != 5 * 10 * denoises or k2_n != N_FRAMES + 1:
+                raise Failed(f"{tag} closed loop: K1 {k1_n} (want "
+                             f"{5 * 10 * denoises}), K2 {k2_n} (want "
+                             f"{N_FRAMES + 1}) launches")
+            a = out.actions
+            if tuple(a.shape) != (N_FRAMES, N_ENVS, 3) or not bool(
+                    torch.isfinite(a).all()):
+                raise Failed(f"{tag} closed loop: actions {tuple(a.shape)}, "
+                             "or not finite")
+        # the same fp32 loop on the plain path: K1 and K2 plain versions
+        with mock.patch.object(cuda_ops, "attention_core",
+                               cuda_ops.attention_core_ref), \
+                mock.patch.object(cuda_sampler, "sample_banked",
+                                  cuda_sampler.sample_banked_ref):
+            _, plain = drive(False, N_FRAMES, args.seed)
+        d = (loop["fp32"]["actions"] - plain.actions).abs().max().item()
+        loop["fp32"]["vs_plain_max"] = d
+        print(f"  fp32 kernel path vs plain path over {N_FRAMES} frames: "
+              f"max action diff {d:.3e} (tol {ACTION_TOL})")
+        if not d <= ACTION_TOL:
+            raise Failed(f"fp32 closed loop differs from the plain path by "
+                         f"{d}")
+        sp = spread(loop["amp"]["actions"], loop["fp32"]["actions"])
+        loop["amp"]["vs_fp32"] = sp
+        print(f"  amp vs fp32 closed loop (not held: chaotic): {fmt(sp)}")
+
+        # driving metrics as the bench reads them: warm-up frames at a
+        # straight action fill the rings, then the policy drives
+        ring = policy.config.obs_horizon * policy.config.step_size
+        t0 = time.perf_counter()
+        states, out = drive(True, DRIVE_FRAMES, args.seed + 1, warmup=ring)
+        sim_min = DRIVE_FRAMES / 3000.0
+        loop["drive"] = dict(
+            frames=DRIVE_FRAMES, seconds=time.perf_counter() - t0,
+            tiles_per_sim_minute=states.tile_count.float().mean().item()
+            / sim_min,
+            reward_per_sim_minute=out.reward_alive.mean().item() / sim_min,
+            done_fraction=states.done.float().mean().item())
+        print(f"  amp, {N_ENVS} envs x {DRIVE_FRAMES} frames ({ring} "
+              f"warm-up): {fmt(loop['drive'])}")
+        for v in loop.values():
+            v.pop("actions", None)
+
     with phase("denoise timing"):
         window = {k: torch.randn((N_ENVS, 10, d), device=device)
                   for k, d in (("position", 2), ("velocity", 2),
@@ -467,7 +808,9 @@ def main() -> int:
         "route": "cuda",
         "source": "state_policy_diffusionmodel_torch/csrc/attention_core.cu",
         "replaces": "state_policy_diffusionmodel_tpu/models/pallas_ops.py:611",
-        "launches": runs["fp32"]["launches"],
+        # the closed loop's fp32 run (the observation-fed rollout reads
+        # the same 500)
+        "launches": loop["fp32"]["k1_launches"],
         # one U-Net forward's five calls at B=256, fp32 (the main path)
         "max_abs_err": max(r["max_abs_err"] for r in fp32),
         "max_abs_err_on_policy": runs["fp32"]["k1_on_policy"]["max_abs_err"],
@@ -478,7 +821,27 @@ def main() -> int:
         "library_ms": sum(r["library_ms"] for r in fp32),
         "per_call": k1,
     }]
-    print(json.dumps({"kernels": kernels, "policy": runs}))
+    # K2 at the env bench's batch on the env's own poses; every case in
+    # per_case
+    k2_main = next(r for r in k2 if r["case"] == "env poses after 50 steps")
+    kernels.append({
+        "name": "sample_banked",
+        "route": "cuda",
+        "source": "state_policy_diffusionmodel_torch/csrc/sample_banked.cu",
+        "replaces": "state_policy_diffusionmodel_tpu/render/pallas_sampler.py"
+                    ":137",
+        "launches": loop["fp32"]["k2_launches"],
+        "launches_env_render": envs_run["env_render"]["k2_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2),
+        "ms": k2_main["ms"],
+        "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"],
+        "bound_by": k2_main["bound_by"],
+        "library_ms": None,
+        "per_case": k2,
+    })
+    print(json.dumps({"kernels": kernels, "policy": runs, "env": envs_run,
+                      "closed_loop": loop}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,23 +94,36 @@ def init_ring_carry(policy: DiffusionPolicy, n_envs: int,
     }
 
 
+# straight ahead at 0.3 gas: the warm-up action of the JAX bench.py's
+# driving metrics
+WARMUP_ACTION = (0.0, 0.3, 0.0)
+
+
 def make_ring_policy(policy: DiffusionPolicy, stats=None,
                      sampler: str = "ddim", num_inference_steps: int = 10,
                      ddim_spacing: str = "leading", amp: bool = False,
                      init_noise_fn: Optional[Callable] = None,
-                     seed: int = 0) -> Callable:
+                     seed: int = 0, warmup: int = 0,
+                     denoise_microbatches: int = 1) -> Callable:
     """policy_fn(params, carry, obs, car_position, car_velocity)
     -> ((B, 3) actions, carry).
 
     init_noise_fn(uid, k0) -> (B, horizon, prediction_dim) x_T for the
     denoise at frame k0; by default a draw from a CPU generator seeded by
     seed * 1_000_003 + k0. The ddpm sampler also draws its per-step noise
-    from that generator."""
+    from that generator.
+
+    warmup > 0 drives WARMUP_ACTION for the first `warmup` frames, with
+    no denoise, while the rings fill with real observations (the driving
+    metrics of the JAX bench.py use warmup = obs_horizon * step_size).
+    denoise_microbatches = M splits each denoise into M sampler calls over
+    slices of the batch, with the slices of one x_T draw."""
     cfg = policy.config
     dev = policy.device
     L = cfg.obs_horizon * cfg.step_size
     norm_batch, unnorm_actions = make_obs_normalizers(stats, dev)
     sub_idx = torch.arange(cfg.step_size - 1, L, cfg.step_size, device=dev)
+    warm_action = torch.tensor(WARMUP_ACTION, dtype=torch.float32).to(dev)
     cast_cache: dict = {}
 
     def generator(k0: int) -> torch.Generator:
@@ -144,20 +157,43 @@ def make_ring_policy(policy: DiffusionPolicy, stats=None,
             hist["image_features"] = roll(hist["image_features"],
                                           feats[:, 0].float())
 
-        if k0 % cfg.step_size == 0:
-            window = {name: v[:, sub_idx] for name, v in hist.items()}
+        if k0 % cfg.step_size == 0 and k0 >= warmup:
+            window = norm_batch({name: v[:, sub_idx]
+                                 for name, v in hist.items()})
             gen = generator(k0)
-            x_T = (policy.init_noise(uid.shape[0], gen)
+            B = uid.shape[0]
+            x_T = (policy.init_noise(B, gen)
                    if init_noise_fn is None else init_noise_fn(uid, k0))
-            out = policy.sample(
-                params, norm_batch(window), gen, sampler=sampler,
-                num_inference_steps=num_inference_steps, amp=amp,
-                ddim_spacing=ddim_spacing, init_noise=x_T)
-            queue = unnorm_actions(out[:, cfg.inpaint_horizon:, 2:5])
+            chunk = -(-B // denoise_microbatches)
+            outs = [policy.sample(
+                params, {name: v[i:i + chunk] for name, v in window.items()},
+                gen, sampler=sampler, num_inference_steps=num_inference_steps,
+                amp=amp, ddim_spacing=ddim_spacing,
+                init_noise=x_T[i:i + chunk]) for i in range(0, B, chunk)]
+            queue = unnorm_actions(
+                torch.cat(outs)[:, cfg.inpaint_horizon:, 2:5])
 
-        actions = queue[:, 0]
+        if k0 < warmup:
+            actions = warm_action.expand(queue.shape[0], 3)
+        else:
+            actions = queue[:, 0]
         hist["action"] = roll(hist["action"], actions)
         return actions, {"hist": hist, "queue": queue, "k": k0 + 1,
                          "uid": uid}
 
     return policy_fn
+
+
+def env_policy(policy_fn: Callable, params) -> Callable:
+    """Adapt a ring policy to `envs.vector.rollout_policy`: the returned
+    policy(carry, states, prev_res) feeds policy_fn the previous step's
+    frame, car position and hull velocity, as the JAX ring policy reads
+    them from its `prev_res`."""
+
+    def policy(carry, states, prev_res):
+        del states
+        return policy_fn(params, carry, prev_res.obs,
+                         prev_res.info.car_position,
+                         prev_res.info.car_velocity)
+
+    return policy

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every kernel source of the port, by library name
-SOURCES = {"attention_core": "attention_core.cu"}
+SOURCES = {"attention_core": "attention_core.cu",
+           "sample_banked": "sample_banked.cu"}
 
 
 @dataclass

@@ -1,0 +1,146 @@
+"""Kernel K2: nearest-texel palette bytes for every pixel of every env.
+
+Counterpart of `state_policy_diffusionmodel_tpu/render/pallas_sampler.py`
+(`sample_banked`, body `_kernel`). For env b and pixel p of the flat
+(72, 128) image plane the texel map is
+
+    px = (c*rx[p] + s*ry[p]) + pos_x,   py = ((-s)*rx[p] + c*ry[p]) + pos_y,
+    fx = (px + PLAYFIELD) * scale,      fy = (py + PLAYFIELD) * scale,
+
+in float32, in that order, and the result is tex_bank[track_ids[b],
+floor(fx), floor(fy)] where 0 <= fx, fy < T, else 0. The TPU kernel DMAs a
+texel window and gathers with one-hot matmuls because the TPU has no
+per-lane gather; Hopper has one, so `csrc/sample_banked.cu` gathers
+directly and the window origin of the TPU kernel has no counterpart here.
+
+- `sample_banked` launches the CUDA kernel for CUDA tensors (and counts
+  the launch in `sample_banked.launches`) and takes the plain version for
+  CPU tensors; there is no fallback.
+- `sample_banked_ref` is the plain version: the same map, then a direct
+  gather.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..track.generator import PLAYFIELD
+
+ROWS, LANES = 72, 128
+
+
+def texel_scale(tex_size: int) -> float:
+    """World -> texel scale, as the JAX code forms it (a Python double that
+    enters the float32 arithmetic rounded to float32)."""
+    return tex_size / (2.0 * PLAYFIELD)
+
+
+def texel_coords(cos_a, sin_a, pos, rx, ry, tex_size: int):
+    """(fx, fy), each (B, 72, 128) float32: the kernel's texel map."""
+    c = cos_a[:, None, None]
+    s = sin_a[:, None, None]
+    px = (c * rx + s * ry) + pos[:, 0, None, None]
+    py = ((-s) * rx + c * ry) + pos[:, 1, None, None]
+    scale = texel_scale(tex_size)
+    return (px + PLAYFIELD) * scale, (py + PLAYFIELD) * scale
+
+
+def sample_banked_ref(tex_bank: torch.Tensor, track_ids: torch.Tensor,
+                      cos_a: torch.Tensor, sin_a: torch.Tensor,
+                      pos: torch.Tensor, rx: torch.Tensor,
+                      ry: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: (B, 72, 128) int32 packed palette bytes."""
+    T = tex_bank.shape[-1]
+    fx, fy = texel_coords(cos_a, sin_a, pos, rx, ry, T)
+    infield = (fx >= 0) & (fx < T) & (fy >= 0) & (fy < T)
+    fi = torch.floor(fx).to(torch.int64).clamp(0, T - 1)
+    fj = torch.floor(fy).to(torch.int64).clamp(0, T - 1)
+    vals = tex_bank[track_ids.to(torch.int64)[:, None, None], fi, fj]
+    return torch.where(infield, vals.to(torch.int32),
+                       torch.zeros((), dtype=torch.int32,
+                                   device=tex_bank.device))
+
+
+def _sampler_lib() -> ctypes.CDLL:
+    from ..kernels import build
+
+    lib = build.library("sample_banked")
+    if not getattr(lib, "_spdm_typed", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sample_banked_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # tex .. out
+            i32, i32, i32,                            # B, U, T
+            f32, f32, ptr]                            # playfield, scale, stream
+        lib.sample_banked_launch.restype = i32
+        lib._spdm_typed = True
+    return lib
+
+
+def sample_banked_cuda(tex_bank, track_ids, cos_a, sin_a, pos, rx, ry):
+    """Launch the CUDA kernel on the bank's device and current stream;
+    raises on any input it does not take and on a refused launch. Track
+    ids outside [0, U) read nothing and give 0."""
+    dev = tex_bank.device
+    args = dict(tex_bank=tex_bank, track_ids=track_ids, cos_a=cos_a,
+                sin_a=sin_a, pos=pos, rx=rx, ry=ry)
+    if not tex_bank.is_cuda or any(t.device != dev for t in args.values()):
+        raise ValueError("sample_banked_cuda: all inputs must be on one CUDA "
+                         "device, got " + ", ".join(
+                             f"{k} {t.device}" for k, t in args.items()))
+    want = dict(tex_bank=torch.uint8, track_ids=torch.int32,
+                cos_a=torch.float32, sin_a=torch.float32, pos=torch.float32,
+                rx=torch.float32, ry=torch.float32)
+    bad = {k: args[k].dtype for k in want if args[k].dtype != want[k]}
+    if bad:
+        raise TypeError(f"sample_banked_cuda: dtypes {bad}, want uint8 bank, "
+                        "int32 ids and float32 camera scalars and planes")
+    B = track_ids.shape[0] if track_ids.dim() == 1 else -1
+    U, T = tex_bank.shape[0], tex_bank.shape[-1]
+    shapes_ok = (tex_bank.dim() == 3 and tex_bank.shape[1] == T and B > 0
+                 and B <= 65535 and tuple(cos_a.shape) == (B,)
+                 and tuple(sin_a.shape) == (B,) and tuple(pos.shape) == (B, 2)
+                 and tuple(rx.shape) == (ROWS, LANES)
+                 and tuple(ry.shape) == (ROWS, LANES))
+    if not shapes_ok:
+        raise ValueError("sample_banked_cuda: shapes " + ", ".join(
+            f"{k} {tuple(t.shape)}" for k, t in args.items()))
+    if not all(t.is_contiguous() for t in args.values()):
+        raise ValueError("sample_banked_cuda: inputs must be contiguous")
+    out = torch.empty((B, ROWS, LANES), dtype=torch.int32, device=dev)
+    lib = _sampler_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sample_banked_launch(
+            tex_bank.data_ptr(), track_ids.data_ptr(), cos_a.data_ptr(),
+            sin_a.data_ptr(), pos.data_ptr(), rx.data_ptr(), ry.data_ptr(),
+            out.data_ptr(), B, U, T, PLAYFIELD, texel_scale(T), stream)
+    if rc != 0:
+        raise RuntimeError(f"sample_banked kernel launch failed: CUDA error "
+                           f"{rc} at B={B}, U={U}, T={T}")
+    _DISPATCH.launches += 1
+    return out
+
+
+def sample_banked(tex_bank: torch.Tensor, track_ids: torch.Tensor,
+                  cos_a: torch.Tensor, sin_a: torch.Tensor, pos: torch.Tensor,
+                  rx: torch.Tensor, ry: torch.Tensor) -> torch.Tensor:
+    """Batched nearest-texel fetch from a bank of track textures.
+
+    tex_bank (U, T, T) uint8 packed palette (base * 8 + lane); track_ids
+    (B,) int32; cos_a, sin_a (B,) camera rotation; pos (B, 2) camera scroll;
+    rx, ry (72, 128) camera-frame pixel planes. Returns (B, 72, 128) int32,
+    0 off the field."""
+    if tex_bank.is_cuda:
+        return sample_banked_cuda(tex_bank, track_ids, cos_a, sin_a, pos,
+                                  rx, ry)
+    if tex_bank.device.type == "cpu":
+        return sample_banked_ref(tex_bank, track_ids, cos_a, sin_a, pos,
+                                 rx, ry)
+    raise ValueError(f"sample_banked: unsupported device {tex_bank.device}")
+
+
+sample_banked.launches = 0
+# the counter's owner, also while a caller has `sample_banked` patched over
+_DISPATCH = sample_banked

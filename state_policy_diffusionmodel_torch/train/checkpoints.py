@@ -10,6 +10,7 @@ sidecar. The yaml is parsed here, so no yaml package is needed.
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import re
@@ -88,16 +89,31 @@ def load_stats(path: str) -> dict:
         return pickle.load(f)[0]
 
 
-def load_run(run_dir: str, device="cuda"):
+def ema_subdir(run_dir: str) -> str:
+    """Where a run keeps its EMA weights: `checkpoints_ema/` (the trainer's
+    layout), or `checkpoints/` of an exported best run whose BEST.json
+    says its weights are the EMA ones."""
+    if os.path.isdir(os.path.join(run_dir, "checkpoints_ema")):
+        return "checkpoints_ema"
+    best = os.path.join(run_dir, "BEST.json")
+    if os.path.exists(best):
+        with open(best) as f:
+            if json.load(f).get("ema"):
+                return "checkpoints"
+    raise FileNotFoundError(f"{run_dir} holds no EMA weights")
+
+
+def load_run(run_dir: str, device="cuda", ema: bool = False):
     """(policy, params, stats) for a trained run, assembled as the JAX
     package's run_predictions does: the config from hparams.yaml, the
-    newest epoch's params, and STATS.pkl."""
+    newest epoch's params (the EMA weights with `ema`), and STATS.pkl."""
     dev = resolve_device(device)
     hp = load_hparams(os.path.join(run_dir, "hparams.yaml"))
     cfg = PolicyConfig(**{k: hp[k] for k in _CONFIG_KEYS if k in hp})
-    ckpt = latest_checkpoint(run_dir)
+    subdir = ema_subdir(run_dir) if ema else "checkpoints"
+    ckpt = latest_checkpoint(run_dir, subdir)
     if ckpt is None:
-        raise FileNotFoundError(f"no checkpoint under {run_dir}/checkpoints")
+        raise FileNotFoundError(f"no checkpoint under {run_dir}/{subdir}")
     params = params_from_jax(load_npz(os.path.join(ckpt, "params.npz")), dev)
     unet = params["unet"]
     if cfg.model not in MODEL_REGISTRY:

@@ -295,6 +295,11 @@ def test_port_sources_import_no_jax():
     files = sorted(PORT_DIR.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_policy.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(PORT_DIR)) for f in files
+             if PORT_DIR in f.parents}
+    assert {"physics/car.py", "track/geometry.py", "track/generator.py",
+            "track/texture.py", "render/raster.py", "render/cuda_sampler.py",
+            "envs/car_racing.py", "envs/vector.py", "bench.py"} <= names
     bad = {str(f.relative_to(REPO)): r for f in files
            for r in _imported_roots(f) if r in _FORBIDDEN}
     assert not bad
@@ -330,3 +335,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         td.make_obs_normalizers(None)
     assert td.DiffusionPolicy(cfg, device="cpu").device.type == "cpu"
+    # the env, the renderer's inputs and the bench
+    from state_policy_diffusionmodel_torch import bench, physics, track
+    from state_policy_diffusionmodel_torch.envs import vector
+
+    bank = track.load_or_build_bank(2, bake=False, device="cpu")
+    ids = torch.arange(2, dtype=torch.int32)
+    a = torch.zeros((2, 3))
+    states = vector.init_batch(bank, ids, device="cpu")
+    calls = [
+        lambda: track.load_or_build_bank(2, bake=False),
+        lambda: track.build(track.make_track(1), bake=False),
+        lambda: physics.load_pickled_states(
+            REPO / "tests" / "fixtures" / "golden_states.pkl"),
+        lambda: vector.init_batch(bank, ids),
+        lambda: vector.reset_batch(bank, track_ids=ids),
+        lambda: vector.step_batch(states, bank, a, track_ids=ids),
+        lambda: vector.rollout_constant(states, bank, a, 1, track_ids=ids),
+        lambda: vector.rollout_policy(bank, None, None, 1, track_ids=ids),
+        lambda: bench.bench_env(2, 1, 1, False, 2),
+        lambda: bench.bench_policy(2, 1),
+        lambda: bench.main(["--mode", "env_only"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -120,6 +120,22 @@ def test_load_run_assembles_policy(r5blend_tree):
     assert stats["position"]["min"] < stats["position"]["max"]
 
 
+def test_load_run_ema_finds_the_ema_weights(tmp_path):
+    """`--ema`: checkpoints_ema/ when the run has it; else an exported best
+    run whose BEST.json says its checkpoints are the EMA weights (r5blend);
+    else an error."""
+    assert ck.ema_subdir(str(RUN_DIR)) == "checkpoints"
+    _, ema, _ = ck.load_run(str(RUN_DIR), device="cpu", ema=True)
+    _, raw, _ = ck.load_run(str(RUN_DIR), device="cpu")
+    for a, b in zip(ema["unet"].state_dict().values(),
+                    raw["unet"].state_dict().values()):
+        assert torch.equal(a, b)
+    (tmp_path / "checkpoints_ema").mkdir()
+    assert ck.ema_subdir(str(tmp_path)) == "checkpoints_ema"
+    with pytest.raises(FileNotFoundError, match="no EMA"):
+        ck.ema_subdir(str(tmp_path / "checkpoints_ema"))
+
+
 def test_r5blend_full_width_forward_matches_jax(r5blend_tree):
     """One full-width forward of each net with the r5blend weights."""
     rng = np.random.default_rng(0)

@@ -1,13 +1,20 @@
-"""Where the time of one DDIM-10 denoise goes, for the PyTorch/CUDA port.
+"""Where the time goes on the GPU, for the PyTorch/CUDA port.
 
-    python3 tools/profile_torch_policy.py [--amp]
+    python3 tools/profile_torch_policy.py [--what denoise|env_step|loop]
+                                          [--amp]
 
-Loads artifacts/r5blend_best on the GPU, warms up, then runs one DDIM-10
-denoise (10 U-Net forwards at 256 envs) under torch.profiler and
-prints: the denoise's wall time (host clock around work that ends in a
-synchronize), the device time summed over its kernels, the device's idle
-share of the wall time, the device time by kernel category, and the
-kernels that take most of it. TF32 is off, as in chip_smoke.py.
+--what picks the work that is profiled, after a warm-up:
+  denoise   one DDIM-10 denoise of artifacts/r5blend_best (10 U-Net
+            forwards at 256 envs), the default;
+  env_step  one env_render step of 1024 envs on the 16-track bank (physics,
+            tiles, both frames through K2, auto-reset);
+  loop      one policy period of the closed loop: 5 frames of r5blend
+            driving 256 envs on the 4-track bank, one denoise among them.
+It prints the wall time (host clock around work that ends in a
+synchronize, unprofiled and profiled), the device time summed over the
+kernels, the device's idle share of the wall time, the device time by
+kernel category and the kernels that take most of it. TF32 is off, as in
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ N_ENVS, TOP = 256, 25
 # kernel-name substrings -> category, first match wins
 CATEGORIES = [
     ("K1 attention_core", ("attention_core_kernel",)),
+    ("K2 sample_banked", ("sample_banked_kernel",)),
     ("conv / gemm", ("conv", "cudnn", "gemm", "xmma", "cutlass", "sm90_",
                      "wgrad", "dgrad", "fprop", "implicit")),
     ("reduction", ("reduce",)),
@@ -54,8 +62,73 @@ def device_us(evt) -> float:
     return 0.0
 
 
+def make_work(what: str, amp: bool, dev):
+    """(description, work) for --what."""
+    from state_policy_diffusionmodel_torch import diffusion
+    from state_policy_diffusionmodel_torch.diffusion.policy import cast_params
+    from state_policy_diffusionmodel_torch.envs import vector
+    from state_policy_diffusionmodel_torch.track import load_or_build_bank
+    from state_policy_diffusionmodel_torch.train import load_run
+
+    tag = "amp (bf16)" if amp else "fp32"
+    if what == "env_step":
+        B, U = 1024, 16
+        bank = load_or_build_bank(U, bake=True, device=dev)
+        ids = torch.arange(B, dtype=torch.int32, device=dev) % U
+        box = [vector.init_batch(bank, ids, device=dev)]
+        act = torch.tensor([0.05, 0.6, 0.0]).to(dev).expand(B, 3)
+
+        def env_step():
+            st, res = vector.step_batch(box[0], bank, act, track_ids=ids,
+                                        device=dev)
+            box[0] = vector.env.auto_reset(st, bank, ids)
+            return res
+
+        return f"one env_render step, {B} envs, {U}-track bank", env_step
+
+    policy, params, stats = load_run(os.path.join(REPO, "artifacts",
+                                                  "r5blend_best"), dev)
+    if what == "loop":
+        U = 4
+        bank = load_or_build_bank(U, bake=True, device=dev)
+        ids = torch.arange(N_ENVS, dtype=torch.int32, device=dev) % U
+        fn = diffusion.make_ring_policy(policy, stats, amp=amp)
+        pol = diffusion.env_policy(fn, params)
+        st, res = vector.reset_batch(bank, track_ids=ids, device=dev)
+        box = [st, res, diffusion.init_ring_carry(policy, N_ENVS)]
+
+        def period():
+            st, res, carry = box
+            for _ in range(policy.config.step_size):
+                a, carry = pol(carry, st, res)
+                st, res = vector.step_batch(st, bank, a, track_ids=ids,
+                                            device=dev)
+            box[:] = [st, res, carry]
+            return a
+
+        return (f"one closed-loop period ({policy.config.step_size} frames, "
+                f"one DDIM-10 denoise), {N_ENVS} envs, {tag}", period)
+
+    if amp:
+        params = cast_params(params, torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    window = {k: torch.randn((N_ENVS, 10, d), generator=gen).to(dev)
+              for k, d in (("position", 2), ("velocity", 2), ("action", 3),
+                           ("image_features", 128))}
+    x_T = policy.init_noise(N_ENVS, gen)
+
+    def denoise():
+        return policy.sample(params, window, sampler="ddim",
+                             num_inference_steps=10, amp=amp,
+                             init_noise=x_T)
+
+    return f"DDIM-10 denoise, {N_ENVS} envs, {tag}", denoise
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--what", default="denoise",
+                    choices=["denoise", "env_step", "loop"])
     ap.add_argument("--amp", action="store_true",
                     help="bf16 nets, f32 scheduler math")
     args = ap.parse_args()
@@ -67,37 +140,21 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from state_policy_diffusionmodel_torch.diffusion.policy import cast_params
-    from state_policy_diffusionmodel_torch.train import load_run
-
     dev = torch.device("cuda", 0)
-    policy, params, _ = load_run(os.path.join(REPO, "artifacts",
-                                              "r5blend_best"), dev)
-    if args.amp:
-        params = cast_params(params, torch.bfloat16)
-    gen = torch.Generator().manual_seed(0)
-    window = {k: torch.randn((N_ENVS, 10, d), generator=gen).to(dev)
-              for k, d in (("position", 2), ("velocity", 2), ("action", 3),
-                           ("image_features", 128))}
-    x_T = policy.init_noise(N_ENVS, gen)
-
-    def denoise():
-        return policy.sample(params, window, sampler="ddim",
-                             num_inference_steps=10, amp=args.amp,
-                             init_noise=x_T)
+    what, work = make_work(args.what, args.amp, dev)
 
     for _ in range(3):
-        denoise()
+        work()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    denoise()
+    work()
     torch.cuda.synchronize()
     wall_plain_ms = (time.perf_counter() - t0) * 1e3
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        denoise()
+        work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -106,9 +163,8 @@ def main() -> int:
                and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    tag = "amp (bf16)" if args.amp else "fp32"
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"DDIM-10 denoise, {N_ENVS} envs, {tag}: wall {wall_plain_ms:.3f}"
+    print(f"{what}: wall {wall_plain_ms:.3f}"
           f" ms unprofiled, {wall_ms:.3f} ms profiled; device busy "
           f"{busy_ms:.3f} ms over {launches} kernel launches; idle share "
           f"{1 - busy_ms / wall_plain_ms:.3f} of the unprofiled wall "
