@@ -4,12 +4,20 @@
 
 Phases, each printed with its seconds:
   1. device   the card (nvidia-smi name and power limit), torch, nvcc;
-  2. build    nvcc builds every kernel of the port (K1, K2) into build/;
+  2. build    nvcc builds every kernel of the port (K1-K4; K5 is K3 and K4)
+              into build/, one nvcc per source, all started together;
   3. K1       the attention_core CUDA kernel against its plain PyTorch
               version at the five attention shapes of one r5blend U-Net
               forward (B=256, 4 heads) in fp32 and bf16, with its time,
               the plain version's, F.scaled_dot_product_attention's (timed
               as a yardstick only) and the least time the card could take;
+  K3-K5       the conv path's kernels against their plain versions at every
+              shape of one r5blend U-Net forward on the conv-kernel path
+              (B=256, fp32 and bf16): conv3x3 (K3) at its 17 conv shapes,
+              with cuDNN's channels-last F.conv2d timed as the yardstick;
+              gn_act (K4) at its 10 shapes in its four variants (GroupNorm,
+              +GELU, +affine, +affine+residual); double_conv (K5) at the 14
+              distinct shapes of the 15 DoubleConvs;
   K2, env     the sample_banked CUDA kernel against its plain version at
               B=1024 on the 16-track bank, on random poses (edges and
               off-field included) and later on the env's poses after 50
@@ -30,14 +38,25 @@ Phases, each printed with its seconds:
               the fp32 plain path; a bf16 probe (one ulp on a few of K1's
               outputs) shows how far such a difference moves the actions;
               frames/s and the time of one denoise in fp32 and under amp;
+              then the same rollouts on the conv-kernel path
+              (cuda_ops.CONV_PATH = "pallas", SPDM_CONV_PATH=pallas): exactly
+              500 K1, 3,000 K3, 3,000 K4 and 1,500 K5 launches, fp32 actions
+              within ACTION_TOL of the fp32 plain path, amp within the amp
+              limits, and K3-K5 held against their plain versions on the
+              policy's own activations (ShadowDoubleConv);
   closed loop r5blend drives 256 envs on the 4-track bank through the env,
               K2 and K1 (rollout_policy with the ring policy), 50 frames in
               fp32 and under amp: frames/s, exactly 500 K1 and 51 K2
-              launches (50 frames and the reset), fp32 actions within
-              ACTION_TOL of the plain path's (both kernels plain), and the
-              driving metrics of a 500-frame amp run;
+              launches (50 frames and the reset), none of K3-K5 on the
+              default conv path, fp32 actions within ACTION_TOL of the plain
+              path's (every kernel plain), and the driving metrics of a
+              500-frame amp run; then the same loop on the conv-kernel path:
+              launch counts exact, fp32 actions against the all-plain path;
+  denoise     one DDIM-10 denoise in fp32 and under amp, on the default and
+              the conv-kernel path;
   5. cpu      a small rollout on the card against the same on the CPU.
-The line before the last holds the kernels as JSON; the last line is
+Then one line holds the kernels as JSON (with the policy, env and loop
+readings), one the card's name and power limit, and the last line is
 {"ok": true, "device": {...}}. Any failed check exits non-zero first.
 
 TF32 is off for matmuls and cuDNN convolutions throughout
@@ -90,6 +109,31 @@ K1_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 AMP_FAR = 0.05
 AMP_MEAN_TOL = 0.025
 AMP_SHARE_TOL = 0.10
+
+# (H, W, Cin, Cout, residual) of the 15 DoubleConvs of one r5blend U-Net
+# forward that the conv-kernel path takes (Cin >= 8; the first, Cin=1, stays
+# plain), in forward order: down blocks, bottleneck, up blocks. UNetFiLM
+# has no residual DoubleConv (only UNetSimple's are). Each is two K3 calls
+# ((Cin->Cout) and (Cout->Cout): mid == out), two K4 calls (GELU after the
+# first conv, the affine after the second) and one K5 call. The policy
+# phase checks this list against the shapes it sees.
+DC_SHAPES = [(16, 4, 64, 64, False), (16, 4, 64, 128, False),
+             (8, 2, 128, 128, False), (8, 2, 128, 256, False),
+             (4, 1, 256, 256, False), (4, 1, 256, 256, False),
+             (4, 1, 256, 512, False), (4, 1, 512, 512, False),
+             (4, 1, 512, 256, False),
+             (8, 2, 512, 512, False), (8, 2, 512, 128, False),
+             (16, 4, 256, 256, False), (16, 4, 256, 64, False),
+             (32, 8, 128, 128, False), (32, 8, 128, 64, False)]
+# K3-K5 against their plain versions: max abs error over the largest output.
+# fp32: two f32 summation orders of K = 9*Cin <= 4608 products differ by
+# ~sqrt(K) * 2**-24 ~ 4e-6 of an output, inside K1's 1e-5; the norm keeps
+# relative errors as they are. bf16: the same f32 values rounded once, one
+# bf16 ulp (2**-7 at the top binade); K5 rounds in series (an ulp of its
+# first conv's output feeds the second conv, whose output rounds again):
+# two ulps
+CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+DC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 
 GOLDEN_STATES = os.path.join(HERE, "tests", "fixtures", "golden_states.pkl")
 K2_PIXELS = 72 * 128
@@ -233,6 +277,223 @@ def check_k1(cuda_ops, device):
                   f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})",
                   flush=True)
     return records
+
+
+def conv_calls():
+    """(H, W, Cin, Cout) of the 30 K3 calls of one forward, in order."""
+    return [c for H, W, cin, cout, _ in DC_SHAPES
+            for c in ((H, W, cin, cout), (H, W, cout, cout))]
+
+
+def gn_calls():
+    """(H, W, C, variant) of the 30 K4 calls of one forward, in order."""
+    return [c for H, W, _, cout, res in DC_SHAPES
+            for c in ((H, W, cout, "gelu"),
+                      (H, W, cout, "post_res" if res else "post"))]
+
+
+def rel_err(got, want):
+    """(max abs error, that error over the largest |want|), on the card."""
+    err = (got.float() - want.float()).abs().max()
+    return err, err / want.float().abs().max().clamp_min(1e-30)
+
+
+def itemsize(dtype):
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def check_kernel(name, records, key, got, want, tol, dtype, **fields):
+    """Hold one kernel call against its plain version by the error over
+    the largest output; returns the record (fields + errors) it appends."""
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    err, rel = err.item(), rel.item()
+    if not (rel <= tol[dtype]):
+        raise Failed(f"{name} {dtype} {key}: max abs err {err} = {rel} of "
+                     f"the largest output > {tol[dtype]}")
+    rec = dict(fields, dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=err, max_rel_err=rel, tol=tol[dtype])
+    records.append(rec)
+    return rec
+
+
+def timed(rec, kernel, plain, library=None, iters=20):
+    """Add the kernel's, the plain version's and the library call's graph
+    times to rec."""
+    rec["ms"] = graph_ms(kernel, iters)
+    rec["plain_ms"] = graph_ms(plain, iters)
+    rec["library_ms"] = None if library is None else graph_ms(library, iters)
+
+
+def check_k3(cuda_ops, device):
+    """K3 alone at the 17 distinct conv shapes of the forward, fp32 and
+    bf16: against its plain version, with its time, the plain version's,
+    cuDNN's (F.conv2d on the channels-last views of x and w, TF32 off) and
+    the bound. Returns per-shape records."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, W, cin, cout in dict.fromkeys(conv_calls()):
+            x = torch.randn((N_ENVS, H, W, cin), generator=gen,
+                            device=device).to(dtype)
+            w = (torch.randn((cout, cin, 3, 3), generator=gen, device=device)
+                 * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+            key = f"{H}x{W} {cin}->{cout}"
+            rec = check_kernel("K3", records, key, cuda_ops.conv3x3_cuda(x, w),
+                               cuda_ops.conv3x3_ref(x, w), CONV_TOL, dtype,
+                               H=H, W=W, Cin=cin, Cout=cout)
+            x_cl = x.permute(0, 3, 1, 2)
+            w_cl = w.contiguous(memory_format=torch.channels_last)
+            timed(rec, lambda: cuda_ops.conv3x3_cuda(x, w),
+                  lambda: cuda_ops.conv3x3_ref(x, w),
+                  lambda: F.conv2d(x_cl, w_cl, padding=1))
+            M = N_ENVS * H * W
+            n_bytes = (x.numel() + w.numel() + M * cout) * itemsize(dtype)
+            flops = 2 * M * 9 * cin * cout
+            rec["bound_ms"], rec["bound_by"] = bound(
+                n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_OPS[dtype] * 1e3)
+            print(f"  K3 {rec['dtype']:8s} {key:16s}: rel err "
+                  f"{rec['max_rel_err']:.2e}  kernel {rec['ms']:.4f} ms  "
+                  f"plain {rec['plain_ms']:.4f}  cuDNN "
+                  f"{rec['library_ms']:.4f}  bound {rec['bound_ms']:.4f} "
+                  f"({rec['bound_by']})",
+                  flush=True)
+    return records
+
+
+def gn_inputs(B, H, W, C, dtype, gen, device):
+    """x, gamma, beta, ps, pb, x_res for K4, on the card."""
+    r = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    return [t.to(dtype) for t in (
+        2 * r(B, H, W, C) + 0.5, 1 + 0.3 * r(C), 0.2 * r(C),
+        1 + 0.2 * r(B, C), 0.3 * r(B, C), r(B, H, W, C))]
+
+
+GN_VARIANTS = {"gn": lambda x, g, b, ps, pb, xr: (x, g, b),
+               "gelu": lambda x, g, b, ps, pb, xr: (x, g, b, None, None,
+                                                    None, True),
+               "post": lambda x, g, b, ps, pb, xr: (x, g, b, ps, pb),
+               "post_res": lambda x, g, b, ps, pb, xr: (x, g, b, ps, pb, xr)}
+
+
+def check_k4(cuda_ops, device):
+    """K4 alone at the 10 distinct conv-output shapes of the forward, in
+    its four variants, fp32 and bf16: against its plain version, with its
+    time, the plain version's and the bound (bytes: x [and x_res] read
+    once, the output written once). Returns per-case records."""
+    gen = torch.Generator(device=device).manual_seed(8765)
+    records = []
+    shapes = dict.fromkeys((H, W, C) for H, W, C, _ in gn_calls())
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, W, C in shapes:
+            inputs = gn_inputs(N_ENVS, H, W, C, dtype, gen, device)
+            for variant, pick in GN_VARIANTS.items():
+                a = pick(*inputs)
+                key = f"{H}x{W}x{C} {variant}"
+                rec = check_kernel("K4", records, key,
+                                   cuda_ops.gn_act_cuda(*a),
+                                   cuda_ops.gn_act_ref(*a), CONV_TOL, dtype,
+                                   H=H, W=W, C=C, variant=variant)
+                timed(rec, lambda: cuda_ops.gn_act_cuda(*a),
+                      lambda: cuda_ops.gn_act_ref(*a))
+                n = N_ENVS * H * W * C
+                n_bytes = ((2 + (variant == "post_res")) * n + 2 * C
+                           + 2 * N_ENVS * C * (variant.startswith("post"))
+                           ) * itemsize(dtype)
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    n_bytes / HBM_BYTES_PER_S * 1e3,
+                    10 * n / PEAK_OPS[torch.float32] * 1e3)
+                print(f"  K4 {rec['dtype']:8s} {key:18s}: rel err "
+                      f"{rec['max_rel_err']:.2e}  kernel {rec['ms']:.4f} ms  "
+                      f"plain {rec['plain_ms']:.4f}  bound "
+                      f"{rec['bound_ms']:.4f} ({rec['bound_by']})",
+                      flush=True)
+    return records
+
+
+def dc_inputs(H, W, cin, cout, dtype, gen, device):
+    """x, w1, w2, g1, b1, g2, b2, ps, pb of one DoubleConv on the card:
+    He-scaled OIHW weights, one norm for both (mid == out, the shared-norm
+    quirk), the affine away from identity as FiLM makes it."""
+    r = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    g, b = 1 + 0.3 * r(cout), 0.2 * r(cout)
+    return [t.to(dtype) for t in (
+        r(N_ENVS, H, W, cin), r(cout, cin, 3, 3) * (2 / (9 * cin)) ** 0.5,
+        r(cout, cout, 3, 3) * (2 / (9 * cout)) ** 0.5, g, b, g, b,
+        1 + 0.2 * r(N_ENVS, cout), 0.3 * r(N_ENVS, cout))]
+
+
+def check_k5(cuda_ops, device):
+    """K5 at the 14 distinct DoubleConv shapes of the forward, fp32 and
+    bf16: against its plain version, with its time, the plain version's and
+    the bound of the whole block (x, the weights, the vectors read once, the
+    output written once; both convs' operations). Returns records."""
+    gen = torch.Generator(device=device).manual_seed(2468)
+    records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, W, cin, cout, res in dict.fromkeys(DC_SHAPES):
+            a = dc_inputs(H, W, cin, cout, dtype, gen, device) + [res]
+            key = f"{H}x{W} {cin}->{cout}{' res' if res else ''}"
+            rec = check_kernel("K5", records, key,
+                               cuda_ops.double_conv_cuda(*a),
+                               cuda_ops.double_conv_ref(*a), DC_TOL, dtype,
+                               H=H, W=W, Cin=cin, Cout=cout, residual=res)
+            timed(rec, lambda: cuda_ops.double_conv_cuda(*a),
+                  lambda: cuda_ops.double_conv_ref(*a), iters=10)
+            M = N_ENVS * H * W
+            n_bytes = (sum(t.numel() for t in a[:-1]) + M * cout) \
+                * itemsize(dtype)
+            flops = 2 * M * 9 * (cin + cout) * cout
+            rec["bound_ms"], rec["bound_by"] = bound(
+                n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_OPS[dtype] * 1e3)
+            print(f"  K5 {rec['dtype']:8s} {key:20s}: rel err "
+                  f"{rec['max_rel_err']:.2e}  kernel {rec['ms']:.4f} ms  "
+                  f"plain {rec['plain_ms']:.4f}  bound {rec['bound_ms']:.4f}"
+                  f" ({rec['bound_by']})", flush=True)
+    return records
+
+
+class ShadowDoubleConv:
+    """double_conv that returns the plain version and, where K5 would run,
+    runs the kernels on the same inputs: K3 and K4 at each of their four
+    stages, each on the plain version's own input to that stage, and K5
+    whole. Records each one's max abs error over the largest output, and
+    the DoubleConv shapes it saw. The records stay on the card until
+    summary()."""
+
+    def __init__(self, cuda_ops):
+        self.ops = cuda_ops
+        self.calls = 0
+        self.rel = {"K3": [], "K4": [], "K5": []}
+        self.shapes = set()
+
+    def __call__(self, x, w1, w2, g1, b1, g2, b2, ps, pb, residual=False):
+        ops = self.ops
+        xres = x if residual else None
+        h0 = ops.conv3x3_ref(x, w1).contiguous()
+        h = ops.gn_act_ref(h0, g1, b1, gelu=True)
+        y0 = ops.conv3x3_ref(h, w2).contiguous()
+        out = ops.gn_act_ref(y0, g2, b2, ps, pb, xres)
+        if ops.takes_conv_kernel(x, min(x.shape[3], w1.shape[0])):
+            self.calls += 1
+            self.shapes.add((x.shape[1], x.shape[2], x.shape[3], w2.shape[0],
+                             residual))
+            rel = lambda got, want: rel_err(got, want)[1]
+            self.rel["K3"] += [rel(ops.conv3x3_cuda(x, w1), h0),
+                               rel(ops.conv3x3_cuda(h, w2), y0)]
+            self.rel["K4"] += [rel(ops.gn_act_cuda(h0, g1, b1, gelu=True), h),
+                               rel(ops.gn_act_cuda(y0, g2, b2, ps, pb, xres),
+                                   out)]
+            self.rel["K5"].append(rel(ops.double_conv_cuda(
+                x, w1, w2, g1, b1, g2, b2, ps, pb, residual), out))
+        return out
+
+    def summary(self):
+        return dict(calls=self.calls, **{
+            f"{k}_max_rel_err": torch.stack(v).max().item()
+            for k, v in self.rel.items()})
 
 
 def observation_stream(stats, seed, device):
@@ -439,6 +700,54 @@ def frame_bytes(a, b):
     return (a != b).reshape(a.shape[0], -1).sum(-1)
 
 
+def per_forward(records, calls, key):
+    """Sums over one forward's calls (fp32) of each timing, from the records
+    of the distinct shapes; the bound labelled by the side that sets most
+    of the summed bound."""
+    by_key = {key(r): r for r in records if r["dtype"] == "float32"}
+    rows = [by_key[c] for c in calls]
+    out = {k: sum(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "bound_ms")}
+    out["library_ms"] = (None if rows[0]["library_ms"] is None
+                         else sum(r["library_ms"] for r in rows))
+    side = {b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b)
+            for b in ("bytes", "operations")}
+    out["bound_by"] = max(side, key=side.get)
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return out
+
+
+def conv_kernel_entries(k3, k4, k5, runs, loop):
+    """The kernels line's K3-K5 entries: one forward's calls at B=256 in
+    fp32 (the main path's), launches from the fp32 closed loop on the
+    conv-kernel path, every per-shape record beside."""
+    csrc = "state_policy_diffusionmodel_torch/csrc/"
+    tpu = "state_policy_diffusionmodel_tpu/models/pallas_ops.py:"
+    launches = loop["fp32"]["conv_path"]["launches"]
+    on_policy = runs["fp32"]["conv_path"]["kernels_on_policy"]
+    entries = []
+    for name, k, source, line, recs, calls, key in (
+            ("conv3x3", "K3", csrc + "conv3x3.cu", 137, k3, conv_calls(),
+             lambda r: (r["H"], r["W"], r["Cin"], r["Cout"])),
+            ("gn_act", "K4", csrc + "gn_act.cu", 465, k4, gn_calls(),
+             lambda r: (r["H"], r["W"], r["C"], r["variant"])),
+            ("double_conv", "K5",
+             "state_policy_diffusionmodel_torch/models/cuda_ops.py", 535, k5,
+             DC_SHAPES,
+             lambda r: (r["H"], r["W"], r["Cin"], r["Cout"], r["residual"]))):
+        fwd = per_forward(recs, calls, key)
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"{tpu}{line}", "launches": launches[k],
+            "max_abs_err": fwd["max_abs_err"],
+            "max_rel_err_on_policy": on_policy[f"{k}_max_rel_err"],
+            "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+            "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+            "library_ms": fwd["library_ms"], "per_shape": recs})
+    entries[-1]["sources"] = [csrc + "conv3x3.cu", csrc + "gn_act.cu"]
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -462,6 +771,20 @@ def main() -> int:
     from state_policy_diffusionmodel_torch.track import load_or_build_bank
     from state_policy_diffusionmodel_torch.train import load_run
 
+    # every kernel's launch count: on the wrapper (K3-K5) or on its
+    # dispatcher (K1, K2), the owner also while a check has the module's
+    # dispatcher patched over
+    counted = {"K1": cuda_ops.attention_core, "K2": cuda_sampler.sample_banked,
+               "K3": cuda_ops.conv3x3_cuda, "K4": cuda_ops.gn_act_cuda,
+               "K5": cuda_ops.double_conv_cuda}
+
+    def zero_counts():
+        for f in counted.values():
+            f.launches = 0
+
+    def read_counts():
+        return {k: f.launches for k, f in counted.items()}
+
     with phase("device"):
         smi = nvidia_smi_line()
         nvcc_v = subprocess.run([build.nvcc(), "--version"],
@@ -483,6 +806,12 @@ def main() -> int:
 
     with phase("K1 attention_core vs plain"):
         k1 = check_k1(cuda_ops, device)
+    with phase("K3 conv3x3 vs plain"):
+        k3 = check_k3(cuda_ops, device)
+    with phase("K4 gn_act vs plain"):
+        k4 = check_k4(cuda_ops, device)
+    with phase("K5 double_conv vs plain"):
+        k5 = check_k5(cuda_ops, device)
 
     env_bank = load_or_build_bank(ENV_TRACKS, bake=True, device=device)
     _, _, rx, ry = raster.pixel_planes(device)
@@ -549,11 +878,12 @@ def main() -> int:
     with phase("env throughput"):
         for mode, render in (("env_only", False), ("env_render", True)):
             # the path: counts to 0 just before, read just after
-            cuda_sampler.sample_banked.launches = 0
-            cuda_ops.attention_core.launches = 0
+            zero_counts()
             sps, times = bench.bench_env(ENV_B, ENV_STEPS, ENV_REPEATS,
                                          render, ENV_TRACKS, device=device)
             k2_n = cuda_sampler.sample_banked.launches
+            if any(read_counts()[k] for k in ("K1", "K3", "K4", "K5")):
+                raise Failed(f"{mode}: launches {read_counts()}")
             want = (ENV_REPEATS + 1) * ENV_STEPS if render else 0
             envs_run[mode] = dict(steps_per_s=sps, seconds=times,
                                   k2_launches=k2_n)
@@ -599,7 +929,7 @@ def main() -> int:
             rollout(fn, params, diffusion.init_ring_carry(policy, N_ENVS),
                     stream, 5)                               # warm-up
             torch.cuda.synchronize()
-            cuda_ops.attention_core.launches = 0
+            zero_counts()
             t0 = time.perf_counter()
             acts[tag], _ = rollout(fn, params,
                                    diffusion.init_ring_carry(policy, N_ENVS),
@@ -607,6 +937,9 @@ def main() -> int:
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launches = cuda_ops.attention_core.launches
+            if any(read_counts()[k] for k in ("K3", "K4", "K5")):
+                raise Failed(f"{tag}: conv kernels ran on the default conv "
+                             f"path: {read_counts()}")
             # the same rollout on the plain path, holding K1 against it on
             # the policy's own activations as it goes
             shadow = ShadowAttention(cuda_ops)
@@ -680,6 +1013,78 @@ def main() -> int:
                 raise Failed(f"{tag} actions too far from the fp32 plain "
                              f"path: {sp}")
 
+    denoises = N_FRAMES // policy.config.step_size
+    want_n = {"K1": 5 * 10 * denoises, "K3": 30 * 10 * denoises,
+              "K4": 30 * 10 * denoises, "K5": 15 * 10 * denoises}
+    conv_path = lambda: mock.patch.object(cuda_ops, "CONV_PATH", "pallas")
+    with phase("policy rollouts, conv kernels"):
+        for amp in (False, True):
+            tag = "amp" if amp else "fp32"
+            fn = make(amp)
+            with conv_path():
+                rollout(fn, params, diffusion.init_ring_carry(policy, N_ENVS),
+                        stream, 5)                           # warm-up
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                a, _ = rollout(fn, params,
+                               diffusion.init_ring_carry(policy, N_ENVS),
+                               stream, N_FRAMES)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                n = read_counts()
+                # the plain path once more, holding K3-K5 against it on the
+                # policy's own activations as it goes
+                shadow = ShadowDoubleConv(cuda_ops)
+                with mock.patch.object(cuda_ops, "double_conv", shadow), \
+                        mock.patch.object(cuda_ops, "attention_core",
+                                          cuda_ops.attention_core_ref):
+                    rollout(fn, params,
+                            diffusion.init_ring_carry(policy, N_ENVS),
+                            stream, N_FRAMES)
+                torch.cuda.synchronize()
+            on_policy = shadow.summary()
+            sp = spread(a, acts["fp32_plain"])
+            runs[tag]["conv_path"] = dict(
+                seconds=secs, fps=N_ENVS * N_FRAMES / secs, launches=n,
+                kernels_on_policy=on_policy, vs_fp32_plain=sp)
+            print(f"  {tag}, conv kernels: {N_ENVS * N_FRAMES} frames in "
+                  f"{secs:.3f} s = {N_ENVS * N_FRAMES / secs:.1f} frames/s "
+                  f"(default path {runs[tag]['fps']:.1f}); launches {n}",
+                  flush=True)
+            print(f"  {tag}, conv kernels vs plain on the policy's "
+                  f"activations: {fmt(on_policy)}", flush=True)
+            print(f"  {tag}, conv kernels, actions vs fp32 plain: {fmt(sp)}",
+                  flush=True)
+            if tuple(a.shape) != (N_FRAMES, N_ENVS, 3) or not bool(
+                    torch.isfinite(a).all()):
+                raise Failed(f"{tag} conv kernels: actions {tuple(a.shape)}, "
+                             "or not finite")
+            if any(n[k] != v for k, v in want_n.items()) or n["K2"]:
+                raise Failed(f"{tag} conv kernels: launches {n}, expected "
+                             f"{want_n} and no K2")
+            if shadow.shapes != set(DC_SHAPES) or \
+                    shadow.calls != want_n["K5"]:
+                raise Failed(f"{tag}: the policy's DoubleConvs "
+                             f"{sorted(shadow.shapes)} x {shadow.calls} are "
+                             "not DC_SHAPES x 1500")
+            dtype = torch.bfloat16 if amp else torch.float32
+            for k, tol in (("K3", CONV_TOL), ("K4", CONV_TOL),
+                           ("K5", DC_TOL)):
+                if not on_policy[f"{k}_max_rel_err"] <= tol[dtype]:
+                    raise Failed(f"{tag}: {k} differs from its plain version"
+                                 f" on the policy's activations by "
+                                 f"{on_policy[f'{k}_max_rel_err']} of the "
+                                 f"largest output > {tol[dtype]}")
+            if amp:
+                if not (sp["mean"] <= AMP_MEAN_TOL
+                        and sp["share_over"] <= AMP_SHARE_TOL):
+                    raise Failed(f"amp conv kernels: actions too far from "
+                                 f"the fp32 plain path: {sp}")
+            elif not sp["max"] <= ACTION_TOL:
+                raise Failed(f"fp32 conv kernels: actions differ from the "
+                             f"plain path by {sp['max']} > {ACTION_TOL}")
+
     loop_bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=device)
     loop_ids = torch.arange(N_ENVS, dtype=torch.int32,
                             device=device) % LOOP_TRACKS
@@ -696,20 +1101,21 @@ def main() -> int:
 
     loop = {}
     with phase("closed loop"):
-        denoises = N_FRAMES // policy.config.step_size
         for amp in (False, True):
             tag = "amp" if amp else "fp32"
             drive(amp, 5, args.seed)                          # warm-up
             torch.cuda.synchronize()
             # the main path: counts to 0 just before, read just after
-            cuda_ops.attention_core.launches = 0
-            cuda_sampler.sample_banked.launches = 0
+            zero_counts()
             t0 = time.perf_counter()
             states, out = drive(amp, N_FRAMES, args.seed)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             k1_n = cuda_ops.attention_core.launches
             k2_n = cuda_sampler.sample_banked.launches
+            if any(read_counts()[k] for k in ("K3", "K4", "K5")):
+                raise Failed(f"{tag} closed loop: conv kernels ran on the "
+                             f"default conv path: {read_counts()}")
             loop[tag] = dict(seconds=secs, fps=N_ENVS * N_FRAMES / secs,
                              k1_launches=k1_n, k2_launches=k2_n,
                              actions=out.actions,
@@ -758,6 +1164,43 @@ def main() -> int:
             done_fraction=states.done.float().mean().item())
         print(f"  amp, {N_ENVS} envs x {DRIVE_FRAMES} frames ({ring} "
               f"warm-up): {fmt(loop['drive'])}")
+
+    with phase("closed loop, conv kernels"):
+        for amp in (False, True):
+            tag = "amp" if amp else "fp32"
+            with conv_path():
+                drive(amp, 5, args.seed)                      # warm-up
+                torch.cuda.synchronize()
+                # the conv-kernel path: counts to 0 just before, read after
+                zero_counts()
+                t0 = time.perf_counter()
+                states, out = drive(amp, N_FRAMES, args.seed)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                n = read_counts()
+            a = out.actions
+            loop[tag]["conv_path"] = dict(
+                seconds=secs, fps=N_ENVS * N_FRAMES / secs, launches=n,
+                tiles=states.tile_count.float().mean().item(),
+                vs_plain=spread(a, plain.actions))
+            print(f"  {tag}, conv kernels: {N_ENVS} envs x {N_FRAMES} frames "
+                  f"in {secs:.3f} s = {N_ENVS * N_FRAMES / secs:.1f} frames/s"
+                  f" (default path {loop[tag]['fps']:.1f}); launches {n}",
+                  flush=True)
+            print(f"  {tag}, conv kernels vs the all-plain fp32 path: "
+                  f"{fmt(loop[tag]['conv_path']['vs_plain'])}", flush=True)
+            if (any(n[k] != v for k, v in want_n.items())
+                    or n["K2"] != N_FRAMES + 1):
+                raise Failed(f"{tag} closed loop, conv kernels: launches {n},"
+                             f" expected {want_n} and K2 {N_FRAMES + 1}")
+            if tuple(a.shape) != (N_FRAMES, N_ENVS, 3) or not bool(
+                    torch.isfinite(a).all()):
+                raise Failed(f"{tag} closed loop, conv kernels: actions "
+                             f"{tuple(a.shape)}, or not finite")
+        d = loop["fp32"]["conv_path"]["vs_plain"]["max"]
+        if not d <= ACTION_TOL:
+            raise Failed(f"fp32 closed loop on the conv kernels differs from "
+                         f"the all-plain path by {d} > {ACTION_TOL}")
         for v in loop.values():
             v.pop("actions", None)
 
@@ -768,13 +1211,20 @@ def main() -> int:
         x_T = policy.init_noise(N_ENVS, torch.Generator().manual_seed(0))
         bf16_params = diffusion.policy.cast_params(params, torch.bfloat16)
         for amp in (False, True):
-            ms = cuda_ms(lambda: policy.sample(
-                bf16_params if amp else params, window, sampler="ddim",
-                num_inference_steps=10, amp=amp, init_noise=x_T), 5,
-                warmup=2)
-            runs["amp" if amp else "fp32"]["denoise_ms"] = ms
-            print(f"  DDIM-10 denoise, {N_ENVS} envs, "
-                  f"{'amp' if amp else 'fp32'}: {ms:.3f} ms")
+            tag = "amp" if amp else "fp32"
+            for path in ("default", "conv_path"):
+                with mock.patch.object(cuda_ops, "CONV_PATH", "pallas"
+                                       if path == "conv_path" else "xla9"):
+                    ms = cuda_ms(lambda: policy.sample(
+                        bf16_params if amp else params, window,
+                        sampler="ddim", num_inference_steps=10, amp=amp,
+                        init_noise=x_T), 5, warmup=2)
+                if path == "default":
+                    runs[tag]["denoise_ms"] = ms
+                else:
+                    runs[tag]["conv_path"]["denoise_ms"] = ms
+                print(f"  DDIM-10 denoise, {N_ENVS} envs, {tag}, "
+                      f"{path.replace('_', ' ')}: {ms:.3f} ms")
         print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     with phase("card vs cpu"):
@@ -840,6 +1290,7 @@ def main() -> int:
         "library_ms": None,
         "per_case": k2,
     })
+    kernels += conv_kernel_entries(k3, k4, k5, runs, loop)
     print(json.dumps({"kernels": kernels, "policy": runs, "env": envs_run,
                       "closed_loop": loop}))
     print(smi)

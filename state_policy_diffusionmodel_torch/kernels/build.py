@@ -28,7 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every kernel source of the port, by library name
 SOURCES = {"attention_core": "attention_core.cu",
-           "sample_banked": "sample_banked.cu"}
+           "sample_banked": "sample_banked.cu",
+           "conv3x3": "conv3x3.cu",
+           "gn_act": "gn_act.cu"}
 
 
 @dataclass

@@ -23,9 +23,12 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 
 
 @pytest.fixture()
-def device():
+def device(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    # the plain versions in full fp32: cuDNN convolves in TF32 by default
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -142,3 +145,167 @@ def test_env_step_renders_through_k2_once(device):
             assert ks.sample_banked.launches == before + 5
         out[dev.type] = res.obs.cpu()
     assert int((out["cuda"] != out["cpu"]).sum(dim=(1, 2, 3)).max()) <= 30
+
+
+# ---------------------------------------------------------------------------
+# K3-K5: the conv path (conv3x3, gn_act, double_conv)
+# ---------------------------------------------------------------------------
+
+# max abs error over the largest output: fp32 two summation orders of
+# K = 9*Cin <= 4608 products (~4e-6 of an output), bf16 one ulp (2**-7 at
+# the top binade); double_conv rounds twice in series, two ulps
+CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+DC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _randn(gen, *shape, dtype=torch.float32, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale
+            + shift).to(dtype)
+
+
+# (B, H, W, Cin, Cout): the 4x1 level at B*H*W = 1024 with K = 4608, the 8x2
+# level (W=2), the 32x8 level, and ragged ones: Cin not a multiple of 4 or
+# of 16 (bf16 then takes the CUDA-core kernel, not the tensor cores), Cout
+# not a multiple of 64, B*H*W not a multiple of any row tile
+CONV_EDGES = [(256, 4, 1, 512, 512), (256, 4, 1, 256, 512),
+              (64, 8, 2, 128, 256), (16, 32, 8, 64, 64), (3, 8, 2, 32, 24),
+              (3, 32, 8, 10, 24), (7, 4, 1, 36, 40), (5, 8, 2, 8, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,cin,cout", CONV_EDGES)
+def test_conv3x3_kernel_matches_plain(device, B, H, W, cin, cout, dtype):
+    gen = torch.Generator(device=device).manual_seed(B * H * W + cin + cout)
+    x = _randn(gen, B, H, W, cin, dtype=dtype)
+    w = _randn(gen, cout, cin, 3, 3, dtype=dtype, scale=(2 / (9 * cin)) ** .5)
+    before = cuda_ops.conv3x3_cuda.launches
+    got = cuda_ops.conv3x3_cuda(x, w)
+    torch.cuda.synchronize()
+    assert cuda_ops.conv3x3_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, W, cout)
+    assert _rel(got, cuda_ops.conv3x3_ref(x, w)) <= CONV_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(256, 4, 1, 512), (8, 32, 8, 128),
+                                   (3, 5, 3, 6)])
+@pytest.mark.parametrize("variant", ["gn", "gelu", "post", "post_res"])
+def test_gn_act_kernel_matches_plain(device, variant, shape, dtype):
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    B, C = shape[0], shape[-1]
+    x = _randn(gen, *shape, dtype=dtype, scale=2.0, shift=0.5)
+    g = _randn(gen, C, dtype=dtype, scale=0.3, shift=1.0)
+    b = _randn(gen, C, dtype=dtype, scale=0.2)
+    # ps as the U-Net gives it: a strided view (one row of a (B, 2, C) FiLM)
+    ps = _randn(gen, B, 2, C, dtype=dtype, scale=0.2, shift=1.0)[:, 0]
+    pb = _randn(gen, B, C, dtype=dtype, scale=0.3)
+    xr = _randn(gen, *shape, dtype=dtype)
+    args = {"gn": (x, g, b), "gelu": (x, g, b, None, None, None, True),
+            "post": (x, g, b, ps, pb),
+            "post_res": (x, g, b, ps, pb, xr)}[variant]
+    before = cuda_ops.gn_act_cuda.launches
+    got = cuda_ops.gn_act_cuda(*args)
+    torch.cuda.synchronize()
+    assert cuda_ops.gn_act_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _rel(got, cuda_ops.gn_act_ref(*args)) <= CONV_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,cin,cout,residual", [
+    (256, 4, 1, 256, 512, False), (64, 8, 2, 128, 128, True),
+    (16, 16, 4, 64, 64, True), (4, 32, 8, 16, 24, False)])
+def test_double_conv_kernel_matches_plain(device, B, H, W, cin, cout,
+                                          residual, dtype):
+    from unittest import mock
+
+    gen = torch.Generator(device=device).manual_seed(B + cin + cout)
+    x = _randn(gen, B, H, W, cin, dtype=dtype)
+    w1 = _randn(gen, cout, cin, 3, 3, dtype=dtype, scale=(2 / (9 * cin)) ** .5)
+    w2 = _randn(gen, cout, cout, 3, 3, dtype=dtype,
+                scale=(2 / (9 * cout)) ** .5)
+    g = _randn(gen, cout, dtype=dtype, scale=0.3, shift=1.0)
+    b = _randn(gen, cout, dtype=dtype, scale=0.2)
+    ps = _randn(gen, B, cout, dtype=dtype, scale=0.2, shift=1.0)
+    pb = _randn(gen, B, cout, dtype=dtype, scale=0.3)
+    args = (x, w1, w2, g, b, g, b, ps, pb, residual and cin == cout)
+    before = (cuda_ops.conv3x3_cuda.launches, cuda_ops.gn_act_cuda.launches,
+              cuda_ops.double_conv_cuda.launches)
+    with mock.patch.object(cuda_ops, "CONV_PATH", "pallas"):
+        got = cuda_ops.double_conv(*args)
+    torch.cuda.synchronize()
+    assert (cuda_ops.conv3x3_cuda.launches, cuda_ops.gn_act_cuda.launches,
+            cuda_ops.double_conv_cuda.launches) == tuple(n + d for n, d in zip(
+                before, (2, 2, 1)))
+    assert got.dtype == dtype and got.shape == (B, H, W, cout)
+    assert _rel(got, cuda_ops.double_conv_ref(*args)) <= DC_TOL[dtype]
+
+
+def test_conv_path_shape_rule_sends_small_shapes_to_plain(device):
+    """On the pallas path Cin < 8 or B*H*W < 1024 take the plain versions,
+    as the TPU dispatch does; on the default path nothing takes a kernel."""
+    from unittest import mock
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    v = lambda c: torch.ones(c, device=device)
+    p = lambda b, c: torch.ones((b, c), device=device)
+    cases = [
+        ("pallas", _randn(gen, 4, 32, 8, 4), 8),      # Cin < 8
+        ("pallas", _randn(gen, 3, 32, 8, 16), 16),    # B*H*W = 768
+        ("xla9", _randn(gen, 8, 32, 8, 16), 16),      # the default path
+        ("xla", _randn(gen, 8, 32, 8, 16), 16)]
+    for path, x, cout in cases:
+        B, cin = x.shape[0], x.shape[3]
+        w1 = _randn(gen, cout, cin, 3, 3, scale=0.1)
+        w2 = _randn(gen, cout, cout, 3, 3, scale=0.1)
+        before = (cuda_ops.conv3x3_cuda.launches, cuda_ops.gn_act_cuda.launches,
+                  cuda_ops.double_conv_cuda.launches)
+        with mock.patch.object(cuda_ops, "CONV_PATH", path):
+            out = cuda_ops.double_conv(x, w1, w2, v(cout), v(cout) * 0,
+                                       v(cout), v(cout) * 0, p(B, cout),
+                                       p(B, cout) * 0)
+            conv = cuda_ops.conv3x3(x, w1)
+        assert (cuda_ops.conv3x3_cuda.launches, cuda_ops.gn_act_cuda.launches,
+                cuda_ops.double_conv_cuda.launches) == before
+        torch.testing.assert_close(out, cuda_ops.double_conv_ref(
+            x, w1, w2, v(cout), v(cout) * 0, v(cout), v(cout) * 0,
+            p(B, cout), p(B, cout) * 0), rtol=0, atol=0)
+        torch.testing.assert_close(conv, cuda_ops.conv3x3_ref(x, w1),
+                                   rtol=0, atol=0)
+
+
+def test_conv_kernels_refuse_what_they_do_not_take(device):
+    x = torch.randn((4, 16, 4, 8), device=device)
+    w = torch.randn((8, 8, 3, 3), device=device)
+    v, p = torch.ones(8, device=device), torch.ones((4, 8), device=device)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_ops.conv3x3_cuda(x.cpu(), w)
+    with pytest.raises(TypeError):
+        cuda_ops.conv3x3_cuda(x.half(), w.half())
+    with pytest.raises(TypeError):
+        cuda_ops.conv3x3_cuda(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_ops.conv3x3_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                              w)
+    with pytest.raises(ValueError, match="match"):
+        cuda_ops.conv3x3_cuda(x, w[:, :4].contiguous())
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_ops.gn_act_cuda(x, v.cpu(), v)
+    with pytest.raises(TypeError):
+        cuda_ops.gn_act_cuda(x.double(), v.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_ops.gn_act_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                             v, v)
+    with pytest.raises(ValueError, match="shapes"):
+        cuda_ops.gn_act_cuda(x, v[:4], v)
+    with pytest.raises(ValueError, match="shapes"):
+        cuda_ops.gn_act_cuda(x, v, v, p.t().contiguous().t()[:, :8], p)
+    with pytest.raises(ValueError, match="together"):
+        cuda_ops.gn_act_cuda(x, v, v, p, None)
+    with pytest.raises(TypeError):
+        cuda_ops.double_conv_cuda(x, w, w.double(), v, v, v, v, p, p)

@@ -299,10 +299,23 @@ def test_port_sources_import_no_jax():
              if PORT_DIR in f.parents}
     assert {"physics/car.py", "track/geometry.py", "track/generator.py",
             "track/texture.py", "render/raster.py", "render/cuda_sampler.py",
-            "envs/car_racing.py", "envs/vector.py", "bench.py"} <= names
+            "envs/car_racing.py", "envs/vector.py", "bench.py",
+            "models/cuda_ops.py", "kernels/build.py"} <= names
     bad = {str(f.relative_to(REPO)): r for f in files
            for r in _imported_roots(f) if r in _FORBIDDEN}
     assert not bad
+    # the CUDA sources: every one is built (chip_smoke.py builds SOURCES),
+    # K3 and K4 among them, and none includes PyTorch's or JAX's headers
+    from state_policy_diffusionmodel_torch.kernels import build
+
+    cu = sorted(p.name for p in (PORT_DIR / "csrc").glob("*.cu"))
+    assert cu == sorted(build.SOURCES.values())
+    assert {"conv3x3.cu", "gn_act.cu"} <= set(cu)
+    for name in cu:
+        includes = [line for line in (PORT_DIR / "csrc" / name).read_text()
+                    .splitlines() if line.startswith("#include")]
+        assert not [i for i in includes if "torch" in i or "jax" in i
+                    or "ATen" in i], (name, includes)
 
 
 def test_port_import_loads_no_jax_module():
@@ -359,4 +372,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the conv path's kernel wrappers (K3, K4, K5) take CUDA tensors only
+    from state_policy_diffusionmodel_torch.models import cuda_ops
+
+    x, w = torch.zeros((4, 16, 4, 8)), torch.zeros((8, 8, 3, 3))
+    v, p = torch.zeros(8), torch.zeros((4, 8))
+    for call in (lambda: cuda_ops.conv3x3_cuda(x, w),
+                 lambda: cuda_ops.gn_act_cuda(x, v, v, p, p, x, True),
+                 lambda: cuda_ops.double_conv_cuda(x, w, w, v, v, v, v, p,
+                                                   p)):
+        with pytest.raises(ValueError, match="CUDA device"):
             call()

@@ -1,7 +1,7 @@
 """Where the time goes on the GPU, for the PyTorch/CUDA port.
 
     python3 tools/profile_torch_policy.py [--what denoise|env_step|loop]
-                                          [--amp]
+                                          [--amp] [--conv-path PATH]
 
 --what picks the work that is profiled, after a warm-up:
   denoise   one DDIM-10 denoise of artifacts/r5blend_best (10 U-Net
@@ -10,6 +10,9 @@
             tiles, both frames through K2, auto-reset);
   loop      one policy period of the closed loop: 5 frames of r5blend
             driving 256 envs on the 4-track bank, one denoise among them.
+--conv-path sets `cuda_ops.CONV_PATH` (xla9, xla or pallas; by default
+what SPDM_CONV_PATH / SPDM_PALLAS_CONV selected at import): `pallas` runs
+the U-Net's conv blocks through the K3-K5 kernels.
 It prints the wall time (host clock around work that ends in a
 synchronize, unprofiled and profiled), the device time summed over the
 kernels, the device's idle share of the wall time, the device time by
@@ -37,6 +40,8 @@ N_ENVS, TOP = 256, 25
 CATEGORIES = [
     ("K1 attention_core", ("attention_core_kernel",)),
     ("K2 sample_banked", ("sample_banked_kernel",)),
+    ("K3 conv3x3", ("conv3x3_kernel", "conv3x3_mma_kernel")),
+    ("K4 gn_act", ("gn_act_kernel",)),
     ("conv / gemm", ("conv", "cudnn", "gemm", "xmma", "cutlass", "sm90_",
                      "wgrad", "dgrad", "fprop", "implicit")),
     ("reduction", ("reduce",)),
@@ -131,6 +136,9 @@ def main() -> int:
                     choices=["denoise", "env_step", "loop"])
     ap.add_argument("--amp", action="store_true",
                     help="bf16 nets, f32 scheduler math")
+    ap.add_argument("--conv-path", choices=["xla9", "xla", "pallas"],
+                    default=None, help="the U-Net's conv path "
+                    "(cuda_ops.CONV_PATH); pallas = the K3-K5 kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_policy: needs a GPU", file=sys.stderr)
@@ -140,8 +148,13 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from state_policy_diffusionmodel_torch.models import cuda_ops
+
+    if args.conv_path is not None:
+        cuda_ops.CONV_PATH = args.conv_path
     dev = torch.device("cuda", 0)
     what, work = make_work(args.what, args.amp, dev)
+    what += f", conv path {cuda_ops.CONV_PATH}"
 
     for _ in range(3):
         work()
