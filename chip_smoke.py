@@ -4,8 +4,9 @@
 
 Phases, each printed with its seconds:
   1. device   the card (nvidia-smi name and power limit), torch, nvcc;
-  2. build    nvcc builds every kernel of the port (K1-K4; K5 is K3 and K4)
-              into build/, one nvcc per source, all started together;
+  2. build    nvcc builds every kernel of the port (K1-K4 and K6; K5 is K3
+              and K4) into build/, one nvcc per source, all started
+              together;
   3. K1       the attention_core CUDA kernel against its plain PyTorch
               version at the five attention shapes of one r5blend U-Net
               forward (B=256, 4 heads) in fp32 and bf16, with its time,
@@ -18,6 +19,12 @@ Phases, each printed with its seconds:
               gn_act (K4) at its 10 shapes in its four variants (GroupNorm,
               +GELU, +affine, +affine+residual); double_conv (K5) at the 14
               distinct shapes of the 15 DoubleConvs;
+  K6          conv_dw, the conv weight gradient, against its plain version
+              at the 17 distinct conv shapes of one r5blend training step
+              (B=256, fp32 and bf16), twice (bit-identical), with cuDNN's
+              weight gradient (aten.convolution_backward, dw only) timed
+              as the yardstick; and K1's backward (plain torch, as JAX's)
+              timed at the five attention shapes;
   K2, env     the sample_banked CUDA kernel against its plain version at
               B=1024 on the 16-track bank, on random poses (edges and
               off-field included) and later on the env's poses after 50
@@ -54,10 +61,35 @@ Phases, each printed with its seconds:
               launch counts exact, fp32 actions against the all-plain path;
   denoise     one DDIM-10 denoise in fp32 and under amp, on the default and
               the conv-kernel path;
-  5. cpu      a small rollout on the card against the same on the CPU.
-Then one line holds the kernels as JSON (with the policy, env and loop
-readings), one the card's name and power limit, and the last line is
-{"ok": true, "device": {...}}. Any failed check exits non-zero first.
+  5. cpu      a small rollout on the card against the same on the CPU;
+  6. training (the slice's path, written under a temporary directory that
+              is removed at the end):
+     data     r5blend drives 16 envs x 400 frames under amp through the
+              closed loop (exactly 4,000 K1 and 401 K2 launches); each env
+              an episode (pre-step pose, action, post-step frame) in a
+              ReplayBuffer, saved as a zlib zarr store and read back through
+              the port's WindowDataset: 3,200 windows;
+     gradients  one batch of 256 of those windows at fixed t and noise,
+              r5blend's weights: the U-Net's gradients on the default path
+              (K1), SPDM_CONV_BWD=pallas (K1 + K6), SPDM_CONV_PATH=pallas
+              (K1 + K5's forward) and both, each against the all-plain
+              path: fp32 within GRAD_TOL of each tensor's largest |grad|,
+              amp within AMP_GRAD_FACTOR of the plain amp path's distance
+              from fp32; exact launches a step (5 K1; 31 K6; 30 K3, 30 K4,
+              15 K5);
+     CLI      one epoch of `python -m state_policy_diffusionmodel_torch.cli.
+              train_policy` on that store with r5blend's recipe (B=256, Adam
+              4e-4 cosine to 1e-6, EMA 0.9995, device data, the frozen
+              r5blend encoder) on the default paths in fp32: every loss
+              finite and the run dir complete;
+     serve    load_run(..., ema=True) of that run drives 16 envs x 10 frames
+              in closed loop;
+     timing   train steps at B=256 from r5blend's weights with EMA, fp32
+              and amp, on the four paths: the median ms of 5 steps after 2
+              (host wall time ending in a synchronize), samples/s, launches.
+Then one line holds the kernels as JSON (with the policy, env, loop and
+training readings), one the card's name and power limit, and the last line
+is {"ok": true, "device": {...}}. Any failed check exits non-zero first.
 
 TF32 is off for matmuls and cuDNN convolutions throughout
 (torch.backends.cuda.matmul.allow_tf32 = False,
@@ -67,10 +99,14 @@ torch.backends.cudnn.allow_tf32 = False): fp32 here is full fp32.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -700,11 +736,11 @@ def frame_bytes(a, b):
     return (a != b).reshape(a.shape[0], -1).sum(-1)
 
 
-def per_forward(records, calls, key):
-    """Sums over one forward's calls (fp32) of each timing, from the records
-    of the distinct shapes; the bound labelled by the side that sets most
-    of the summed bound."""
-    by_key = {key(r): r for r in records if r["dtype"] == "float32"}
+def per_forward(records, calls, key, dtype="float32"):
+    """Sums over one forward's calls (fp32 unless `dtype` says otherwise) of
+    each timing, from the records of the distinct shapes; the bound
+    labelled by the side that sets most of the summed bound."""
+    by_key = {key(r): r for r in records if r["dtype"] == dtype}
     rows = [by_key[c] for c in calls]
     out = {k: sum(r[k] for r in rows)
            for k in ("ms", "plain_ms", "bound_ms")}
@@ -748,6 +784,425 @@ def conv_kernel_entries(k3, k4, k5, runs, loop):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# training: K6, gradients on the card, data, the CLI, step times
+# ---------------------------------------------------------------------------
+
+# (H, W, Cin, Cout) of the 31 convs of one r5blend training step whose
+# weight gradient K6 computes on SPDM_CONV_BWD=pallas: DoubleConv_0's second
+# conv (its first, Cin=1, is off the rule), then both convs of the other 15
+TRAIN_CONVS = [(32, 8, 64, 64)] + conv_calls()
+# K6 against its plain version, over the largest |dw|: fp32 sums of up to
+# 65,536 products in two orders; bf16 inputs the limit of one bf16 ulp
+K6_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+# gradients of the U-Net on a kernel path against the all-plain path, fp32:
+# each tensor's max abs error over its largest |grad|. The attention key
+# biases get no gradient in exact arithmetic (softmax ignores a shift shared
+# by a row of scores), so both paths return rounding noise there (~1e-10 of
+# the largest gradient on an H100); they are held below GRAD_ZERO of the
+# largest gradient of all instead
+GRAD_TOL, GRAD_ZERO = 1e-4, 1e-6
+# amp: a kernel path's relative L2 distance from the fp32 plain gradient may
+# exceed the amp plain path's own by at most this factor
+AMP_GRAD_FACTOR = 1.5
+# the card's data: envs x frames of r5blend driving under amp
+DATA_ENVS, DATA_FRAMES = 16, 400
+# r5blend's recipe (artifacts/r5blend_best/hparams.yaml)
+RECIPE = ["--batch_size", "256", "--lr", "4e-4", "--lr_schedule", "cosine",
+          "--min_lr", "1e-6", "--ema_decay", "0.9995", "--device_data",
+          "--no_early_stop", "--no_sample_viz", "--n_epochs", "1"]
+TIMED_STEPS, WARMUP_STEPS = 5, 2
+# the gradient and timing paths: (CONV_PATH, CONV_BWD)
+TRAIN_PATHS = {"default": ("xla9", ""), "conv_bwd": ("xla9", "pallas"),
+               "conv_path": ("pallas", ""), "both": ("pallas", "pallas")}
+
+
+@contextlib.contextmanager
+def conv_paths(cuda_ops, conv_path, conv_bwd, attention=None):
+    """The conv path and the backward selector set (and the attention core
+    replaced, when given) for the block."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(cuda_ops, "CONV_PATH",
+                                              conv_path))
+        stack.enter_context(mock.patch.object(cuda_ops, "CONV_BWD",
+                                              conv_bwd))
+        if attention is not None:
+            stack.enter_context(mock.patch.object(cuda_ops, "attention_core",
+                                                  attention))
+        yield
+
+
+def time_train_steps(policy, params0, twin, seed, amp, device, counts):
+    """r5blend training steps at B=N_ENVS with EMA on, from a copy of
+    params0: a batch gathered by the device twin and one optimizer step,
+    host wall time ending in a synchronize. Returns the median over
+    TIMED_STEPS after WARMUP_STEPS, and the launches a step."""
+    from state_policy_diffusionmodel_torch.train import loop
+
+    zero_counts, read_counts = counts
+    params = copy.deepcopy(params0)
+    cfg = loop.TrainConfig(lr=4e-4, batch_size=N_ENVS, ema_decay=0.9995)
+    opt = loop.make_optimizer(cfg, params)
+    step = loop.make_train_step(policy, params, opt, amp,
+                                copy.deepcopy(params), cfg.ema_decay)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    order = np.random.default_rng(seed).permutation(len(twin))
+    times, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        if i == WARMUP_STEPS:
+            zero_counts()
+        idx = np.roll(order, -i * N_ENVS)[:N_ENVS]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(twin.batch(idx, image_frames=10), cfg.lr, gen))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = {k: v / TIMED_STEPS for k, v in read_counts().items()}
+    ms = float(np.median(times[WARMUP_STEPS:]))
+    losses = torch.stack(losses).tolist()
+    if not all(np.isfinite(losses)):
+        raise Failed(f"train steps gave losses {losses}")
+    return dict(ms=ms, ms_each=times[WARMUP_STEPS:],
+                samples_per_s=N_ENVS / ms * 1e3, launches_per_step=n,
+                losses=losses,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def k6_bound(B, H, W, cin, cout, dtype):
+    """x and g read once, dw (f32) written once; 2*P*9*Cin*Cout operations
+    at the peak rate for the inputs' type."""
+    P = B * H * W
+    n_bytes = P * (cin + cout) * itemsize(dtype) + 9 * cin * cout * 4
+    return bound(n_bytes / HBM_BYTES_PER_S * 1e3,
+                 2 * P * 9 * cin * cout / PEAK_OPS[dtype] * 1e3)
+
+
+def check_k6(cuda_ops, device):
+    """K6 alone at the 17 distinct conv shapes of a training step, fp32 and
+    bf16: against its plain version, twice (bit-identical), with its time,
+    the plain version's, cuDNN's weight gradient (aten.convolution_backward
+    on the channels-last views, dw only; a yardstick, never on the path) and
+    the bound. Returns per-shape records."""
+    gen = torch.Generator(device=device).manual_seed(1357)
+    records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, W, cin, cout in dict.fromkeys(TRAIN_CONVS):
+            x = torch.randn((N_ENVS, H, W, cin), generator=gen,
+                            device=device).to(dtype)
+            g = torch.randn((N_ENVS, H, W, cout), generator=gen,
+                            device=device).to(dtype)
+            key = f"{H}x{W} {cin}->{cout}"
+            got = cuda_ops.conv_dw_cuda(x, g)
+            again = cuda_ops.conv_dw_cuda(x, g)
+            rec = check_kernel("K6", records, key, got,
+                               cuda_ops.conv_dw_ref(x, g), K6_TOL, dtype,
+                               H=H, W=W, Cin=cin, Cout=cout)
+            if not torch.equal(got, again):
+                raise Failed(f"K6 {dtype} {key}: two runs differ")
+            w_cl = torch.empty((cout, cin, 3, 3), device=device,
+                               dtype=dtype).contiguous(
+                memory_format=torch.channels_last)
+            x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            timed(rec, lambda: cuda_ops.conv_dw_cuda(x, g),
+                  lambda: cuda_ops.conv_dw_ref(x, g),
+                  lambda: torch.ops.aten.convolution_backward(
+                      g_cl, x_cl, w_cl, None, [1, 1], [1, 1], [1, 1], False,
+                      [0, 0], 1, [False, True, False]), iters=10)
+            rec["bound_ms"], rec["bound_by"] = k6_bound(N_ENVS, H, W, cin,
+                                                        cout, dtype)
+            print(f"  K6 {rec['dtype']:8s} {key:16s}: rel err "
+                  f"{rec['max_rel_err']:.2e}, repeat equal  kernel "
+                  f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f}  cuDNN "
+                  f"{rec['library_ms']:.4f}  bound {rec['bound_ms']:.4f} "
+                  f"({rec['bound_by']})", flush=True)
+    return records
+
+
+def attention_bwd_ms(cuda_ops, device):
+    """K1's backward (`attention_core_bwd`, plain torch as in JAX) at the
+    five attention shapes of a training step at B=256, fp32, graph-timed."""
+    gen = torch.Generator(device=device).manual_seed(97)
+    total = 0.0
+    for T, C in ATTN_SHAPES:
+        q, k, v, g = (torch.randn((N_ENVS, T, C), generator=gen,
+                                  device=device) for _ in range(4))
+        total += graph_ms(lambda: cuda_ops.attention_core_bwd(q, k, v, g,
+                                                              HEADS), 10)
+    return total
+
+
+def collect_card_data(policy, params, stats, seed, device):
+    """r5blend drives DATA_ENVS envs on the 4-track bank for DATA_FRAMES
+    frames under amp (K1 and K2), and each env becomes an episode as the
+    JAX package records one: the pre-step position and velocity, the action
+    applied and the post-step frame (uint8, which the dataset scales by
+    1/255). The reset's frame has no step, so an episode keeps frames 1..N-1
+    with the poses of frames 0..N-2."""
+    from state_policy_diffusionmodel_torch import diffusion
+    from state_policy_diffusionmodel_torch.data import ReplayBuffer
+    from state_policy_diffusionmodel_torch.envs import vector
+    from state_policy_diffusionmodel_torch.track import load_or_build_bank
+
+    bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=device)
+    ids = torch.arange(DATA_ENVS, dtype=torch.int32,
+                       device=device) % LOOP_TRACKS
+    fn = diffusion.make_ring_policy(policy, stats, sampler="ddim",
+                                    num_inference_steps=10, amp=True,
+                                    seed=seed)
+    _, _, out = vector.rollout_policy(
+        bank, diffusion.env_policy(fn, params),
+        diffusion.init_ring_carry(policy, DATA_ENVS), DATA_FRAMES,
+        auto_reset=False, track_ids=ids, device=device,
+        keep_trajectory=True)
+    tr = out.trajectory
+    host = lambda t: t.cpu().numpy()
+    obs, pos = host(tr.obs), host(tr.info.car_position)
+    vel, act = host(tr.info.car_velocity), host(out.actions)
+    buf = ReplayBuffer()
+    for b in range(DATA_ENVS):
+        buf.add_episode({"img": obs[1:, b], "position": pos[:-1, b],
+                         "velocity": vel[:-1, b], "action": act[1:, b]})
+    buf.meta["track_id"] = host(ids).astype(np.int64)
+    return buf
+
+
+def unet_grads(policy, params, batch, t, noise, amp=False):
+    """(loss, {name: grad}) of the U-Net for one batch at fixed t and noise;
+    with amp as the train step computes it (`amp_params`)."""
+    from state_policy_diffusionmodel_torch.train import loop
+
+    unet = params["unet"]
+    unet.zero_grad(set_to_none=True)
+    if amp:
+        batch = {k: v.to(torch.bfloat16) for k, v in batch.items()}
+        params = loop.amp_params(params)
+    loss = policy.loss(params, batch, t=t, noise=noise)
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in unet.named_parameters()}
+
+
+def grad_gap(got, want):
+    """Per tensor, max abs error over its largest |grad|; the attention key
+    biases (zero in exact arithmetic) apart. Returns (worst relative error,
+    the largest key-bias gradient over the top gradient, their names)."""
+    top = max(g.abs().max() for g in want.values())
+    worst, worst_zero, zeros = 0.0, 0.0, []
+    for n, w in want.items():
+        err = (got[n] - w).abs().max()
+        if n.endswith("MultiHeadDotProductAttention_0.key.bias"):
+            zeros.append(n)
+            worst_zero = max(worst_zero, (got[n].abs().max() / top).item())
+        else:
+            worst = max(worst, (err / w.abs().max()).item())
+    return worst, worst_zero, zeros
+
+
+def rel_l2(got, want):
+    num = sum(((got[n] - w) ** 2).sum() for n, w in want.items())
+    den = sum((w ** 2).sum() for w in want.values())
+    return (num / den).sqrt().item()
+
+
+def train_phases(args, device, cuda_ops, policy, params, stats, counts):
+    """The training slice's phases: data from the card, gradients on the
+    card on every kernel path, one epoch through the CLI, a closed loop
+    served from the run it wrote, and train-step times. Everything is
+    written under a temporary directory, removed at the end."""
+    from state_policy_diffusionmodel_torch import diffusion
+    from state_policy_diffusionmodel_torch.cli import train_policy
+    from state_policy_diffusionmodel_torch.data import (
+        DeviceWindowDataset, WindowDataset, save_zarr,
+    )
+    from state_policy_diffusionmodel_torch.envs import vector
+    from state_policy_diffusionmodel_torch.track import load_or_build_bank
+    from state_policy_diffusionmodel_torch.train import load_run
+
+    zero_counts, read_counts = counts
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out = {}
+    try:
+        with phase("data from the card"):
+            # the collection path: counts to 0 just before, read after
+            zero_counts()
+            t0 = time.perf_counter()
+            buf = collect_card_data(policy, params, stats, args.seed, device)
+            secs = time.perf_counter() - t0
+            n = read_counts()
+            t0 = time.perf_counter()
+            store = os.path.join(work, "card.zarr")
+            save_zarr(buf, store)
+            ds = WindowDataset(store, 10, 30, 5)
+            io_s = time.perf_counter() - t0
+            bad = [k for k, v in buf.data.items()
+                   if not np.isfinite(v.astype(np.float32)).all()]
+            n_img = buf.data["img"].shape
+            print(f"  {DATA_ENVS} envs x {DATA_FRAMES} frames (amp) in "
+                  f"{secs:.2f} s; launches {n}; {buf.n_episodes} episodes, "
+                  f"frames {n_img}; zarr (zlib) written and read back in "
+                  f"{io_s:.2f} s: {len(ds)} windows")
+            want = {"K1": 5 * 10 * (DATA_FRAMES // 5), "K2": DATA_FRAMES + 1}
+            if bad or any(n[k] != v for k, v in want.items()):
+                raise Failed(f"data collection: non-finite {bad}, launches "
+                             f"{n}, expected {want}")
+            if len(ds) != DATA_ENVS * (DATA_FRAMES - 1 - 40 * 5 + 1):
+                raise Failed(f"{len(ds)} windows from the card's data")
+            out["data"] = dict(seconds=secs, io_seconds=io_s,
+                               windows=len(ds), launches=n,
+                               episodes=buf.n_episodes)
+
+        with phase("gradients on the card"):
+            twin = DeviceWindowDataset(ds, device)
+            idx = np.random.default_rng(args.seed).permutation(
+                len(ds))[:N_ENVS]
+            batch = twin.batch(idx, image_frames=10)
+            gen = torch.Generator(device=device).manual_seed(args.seed + 3)
+            t = torch.randint(0, 1000, (N_ENVS,), generator=gen,
+                              device=device)
+            noise = torch.randn((N_ENVS, 31, 5), generator=gen,
+                                device=device)
+            plain_attn = lambda q, k, v, num_heads=1: \
+                cuda_ops.AttentionCore.apply(cuda_ops.attention_core_ref,
+                                             num_heads, q, k, v)
+            ref = {}
+            with conv_paths(cuda_ops, "xla9", "", plain_attn):
+                for amp in (False, True):
+                    zero_counts()
+                    ref[amp] = unet_grads(policy, params, batch, t, noise,
+                                          amp)
+                    if any(read_counts().values()):
+                        raise Failed(f"the plain path launched "
+                                     f"{read_counts()}")
+            plain_gap = rel_l2(ref[True][1], ref[False][1])
+            print(f"  all-plain path: loss fp32 {ref[False][0].item():.6f}, "
+                  f"amp {ref[True][0].item():.6f}; amp gradient vs fp32: "
+                  f"relative L2 {plain_gap:.3e}")
+            grads = {}
+            for name, (cp, cb) in TRAIN_PATHS.items():
+                grads[name] = {}
+                want = {"K1": 5, "K2": 0, "K3": 30 * (cp == "pallas"),
+                        "K4": 30 * (cp == "pallas"),
+                        "K5": 15 * (cp == "pallas"),
+                        "K6": 31 * (cb == "pallas")}
+                for amp in (False, True):
+                    tag = "amp" if amp else "fp32"
+                    with conv_paths(cuda_ops, cp, cb):
+                        # one loss and backward: counts to 0, read after
+                        zero_counts()
+                        loss, g = unet_grads(policy, params, batch, t,
+                                             noise, amp)
+                        torch.cuda.synchronize()
+                        n = read_counts()
+                    rec = dict(loss=loss.item(), launches=n)
+                    gap = rel_l2(g, ref[False][1])
+                    rec["rel_l2_vs_fp32_plain"] = gap
+                    if amp:
+                        rec["limit"] = AMP_GRAD_FACTOR * plain_gap
+                        ok = gap <= rec["limit"]
+                    else:
+                        worst, worst_zero, zeros = grad_gap(g, ref[False][1])
+                        rec.update(max_rel_err=worst,
+                                   zero_tensors_max=worst_zero,
+                                   zero_tensors=len(zeros))
+                        ok = worst <= GRAD_TOL and worst_zero <= GRAD_ZERO
+                    grads[name][tag] = rec
+                    print(f"  {name:9s} {tag}: {fmt(rec)}", flush=True)
+                    if n != want:
+                        raise Failed(f"gradients, {name} {tag}: launches "
+                                     f"{n}, expected {want}")
+                    if not (ok and np.isfinite(rec["loss"])):
+                        raise Failed(f"gradients, {name} {tag}: {rec}")
+            params["unet"].zero_grad(set_to_none=True)
+            out["gradients"] = grads
+
+        run = os.path.join(work, "runs", "r5blend_recipe")
+        with phase("training through the CLI"):
+            # the main path: counts to 0 just before, read just after
+            zero_counts()
+            t0 = time.perf_counter()
+            res = train_policy.main([
+                "--dataset_dir", work, "--dataset_name", "card.zarr",
+                "--out_dir", os.path.join(work, "runs"),
+                "--version", "r5blend_recipe", "--encoder_ckpt", RUN_DIR,
+                "--seed", "42"] + RECIPE)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = read_counts()
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                events = [json.loads(line) for line in f]
+            losses = [e[k] for e in events for k in ("loss", "val_loss",
+                                                     "train_loss") if k in e]
+            missing = [p for p in ("checkpoints/epoch=0/params.npz",
+                                   "checkpoints_ema/epoch=0/params.npz",
+                                   "STATS.pkl", "hparams.yaml",
+                                   "metrics.jsonl",
+                                   "trainer_state/opt/params.npz")
+                       if not os.path.exists(os.path.join(run, p))]
+            epoch = next(e for e in events if e["event"] == "epoch")
+            print(f"  one epoch, r5blend's recipe, {res['step']} steps of "
+                  f"{N_ENVS} in {secs:.2f} s (the epoch {epoch['seconds']:.2f}"
+                  f" s, {epoch['samples_per_sec']:.1f} samples/s); train "
+                  f"loss {res['history']['train_loss']}, val "
+                  f"{res['history']['val_loss']}; launches {n}")
+            if missing or not losses or not all(np.isfinite(losses)):
+                raise Failed(f"CLI training: missing {missing}, losses "
+                             f"{losses}")
+            if not n["K1"] or any(n[k] for k in ("K2", "K3", "K4", "K5",
+                                                 "K6")):
+                raise Failed(f"CLI training on the default paths launched "
+                             f"{n}")
+            out["cli"] = dict(seconds=secs, steps=res["step"],
+                              history=res["history"], launches=n,
+                              epoch_seconds=epoch["seconds"],
+                              samples_per_s=epoch["samples_per_sec"])
+
+        with phase("serve the trained run"):
+            tpol, tparams, tstats = load_run(run, device, ema=True)
+            bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=device)
+            ids = torch.arange(DATA_ENVS, dtype=torch.int32,
+                               device=device) % LOOP_TRACKS
+            fn = diffusion.make_ring_policy(tpol, tstats, sampler="ddim",
+                                            num_inference_steps=10,
+                                            seed=args.seed)
+            _, _, served = vector.rollout_policy(
+                bank, diffusion.env_policy(fn, tparams),
+                diffusion.init_ring_carry(tpol, DATA_ENVS), 10,
+                auto_reset=False, track_ids=ids, device=device)
+            a = served.actions
+            print(f"  the EMA checkpoint serves {DATA_ENVS} envs x 10 "
+                  f"frames: actions {tuple(a.shape)}, mean |a| "
+                  f"{a.abs().mean().item():.4f}")
+            if tuple(a.shape) != (10, DATA_ENVS, 3) or not bool(
+                    torch.isfinite(a).all()):
+                raise Failed(f"the trained run serves actions "
+                             f"{tuple(a.shape)}, or not finite")
+            out["served"] = dict(frames=10, envs=DATA_ENVS,
+                                 mean_abs_action=a.abs().mean().item())
+
+        with phase("train-step timing"):
+            steps = {}
+            for name, (cp, cb) in TRAIN_PATHS.items():
+                steps[name] = {}
+                for amp in (False, True):
+                    tag = "amp" if amp else "fp32"
+                    with conv_paths(cuda_ops, cp, cb):
+                        rec = time_train_steps(policy, params, twin,
+                                               args.seed, amp, device,
+                                               counts)
+                    steps[name][tag] = rec
+                    print(f"  {name:9s} {tag}: {rec['ms']:.2f} ms a step "
+                          f"(median of {TIMED_STEPS}: "
+                          f"{[round(v, 2) for v in rec['ms_each']]}), "
+                          f"{rec['samples_per_s']:.1f} samples/s, peak "
+                          f"{rec['peak_gib']:.2f} GiB; launches a step "
+                          f"{rec['launches_per_step']}", flush=True)
+            out["step_ms"] = steps
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -776,7 +1231,7 @@ def main() -> int:
     # dispatcher patched over
     counted = {"K1": cuda_ops.attention_core, "K2": cuda_sampler.sample_banked,
                "K3": cuda_ops.conv3x3_cuda, "K4": cuda_ops.gn_act_cuda,
-               "K5": cuda_ops.double_conv_cuda}
+               "K5": cuda_ops.double_conv_cuda, "K6": cuda_ops.conv_dw_cuda}
 
     def zero_counts():
         for f in counted.values():
@@ -812,6 +1267,11 @@ def main() -> int:
         k4 = check_k4(cuda_ops, device)
     with phase("K5 double_conv vs plain"):
         k5 = check_k5(cuda_ops, device)
+    with phase("K6 conv_dw vs plain"):
+        k6 = check_k6(cuda_ops, device)
+        k1_bwd_ms = attention_bwd_ms(cuda_ops, device)
+        print(f"  K1's backward (plain torch, as JAX), the five calls of a "
+              f"training step at B={N_ENVS}, fp32: {k1_bwd_ms:.4f} ms")
 
     env_bank = load_or_build_bank(ENV_TRACKS, bake=True, device=device)
     _, _, rx, ry = raster.pixel_planes(device)
@@ -1246,6 +1706,9 @@ def main() -> int:
         if not d <= ACTION_TOL:
             raise Failed(f"card and cpu actions differ by {d}")
 
+    training = train_phases(args, device, cuda_ops, policy, params, stats,
+                            (zero_counts, read_counts))
+
     fp32 = [r for r in k1 if r["dtype"] == "float32"]
     # the five calls are separate launches: the forward's bound is the sum
     # of each call's own, labelled by the side that sets most of that sum
@@ -1269,6 +1732,9 @@ def main() -> int:
         "bound_ms": fwd_bound_ms,
         "bound_by": fwd_bound_by,
         "library_ms": sum(r["library_ms"] for r in fp32),
+        # the backward is plain torch, as JAX's VJP is plain XLA
+        "backward": "plain torch (attention_core_bwd)",
+        "backward_ms": k1_bwd_ms,
         "per_call": k1,
     }]
     # K2 at the env bench's batch on the env's own poses; every case in
@@ -1291,8 +1757,23 @@ def main() -> int:
         "per_case": k2,
     })
     kernels += conv_kernel_entries(k3, k4, k5, runs, loop)
+    dw_key = lambda r: (r["H"], r["W"], r["Cin"], r["Cout"])
+    step = per_forward(k6, TRAIN_CONVS, dw_key)
+    step_bf16 = per_forward(k6, TRAIN_CONVS, dw_key, "bfloat16")
+    kernels.append({
+        "name": "conv_dw", "route": "cuda",
+        "source": "state_policy_diffusionmodel_torch/csrc/conv_dw.cu",
+        "replaces": "state_policy_diffusionmodel_tpu/models/pallas_ops.py"
+                    ":262",
+        # one fp32 training step on SPDM_CONV_BWD=pallas
+        "launches": training["gradients"]["conv_bwd"]["fp32"]["launches"][
+            "K6"],
+        "max_abs_err": step["max_abs_err"], "ms": step["ms"],
+        "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+        "bound_by": step["bound_by"], "library_ms": step["library_ms"],
+        "bf16": step_bf16, "per_shape": k6})
     print(json.dumps({"kernels": kernels, "policy": runs, "env": envs_run,
-                      "closed_loop": loop}))
+                      "closed_loop": loop, "training": training}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,20 +12,24 @@ config and the sampling semantics are the same:
 `params` is the dict of loaded modules {'unet': UNetFiLM, 'encoder':
 Encoder} (see `params_from_jax.py`). x_T comes from an explicit
 `torch.Generator` or from `init_noise`; the JAX package's threefry draws
-cannot be reproduced in torch. The training loss comes with the training
-slice.
+cannot be reproduced in torch, so `loss` draws t and the noise from an
+explicit generator too, or takes them as arguments. `init_params` builds
+fresh modules with flax's initializers by distribution.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models import Encoder, build_model
+from ..params_from_jax import encoder_from_jax
 from . import schedules as S
 
 
@@ -45,6 +49,7 @@ class PolicyConfig:
     vision_encoder: str = "autoencoder"   # autoencoder | none
     vision_latent: int = 128
     uniform_init: bool = True        # reference torch.rand sampler init
+    train_encoder: bool = False      # reference freezes the AE encoder
     model_width: Optional[int] = None  # U-Net base channels (None = 64)
 
     @property
@@ -80,6 +85,40 @@ def _draw(fn, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
     return fn(shape, generator=generator, device=device)
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]: flax's
+# variance_scaling divides by it, so the truncated draw has variance 1
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default kernel init, `lecun_normal`: a normal truncated at two
+    standard deviations with variance 1/fan_in. Every weight of the port
+    keeps its input features in dims 1.. (OIHW convs, (out, in) dense and
+    attention weights), so fan_in is one output row's size, as flax counts
+    it on the HWIO / (in, out) / DenseGeneral kernels."""
+    std = math.sqrt(1.0 / w[0].numel()) / _TRUNC_STD
+    with torch.no_grad():
+        torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                    generator=generator)
+
+
+def init_module_(module: torch.nn.Module, generator: torch.Generator):
+    """flax's initializers on every parameter, by name: kernels and weights
+    `lecun_normal`, biases zeros, norm scales ones (nn.Dense, nn.Conv,
+    nn.DenseGeneral, nn.LayerNorm and DoubleConv's own params)."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "weight" or leaf.endswith("kernel"):
+            lecun_normal_(p, generator)
+        elif "scale" in leaf:
+            torch.nn.init.ones_(p)
+        elif "bias" in leaf:
+            torch.nn.init.zeros_(p)
+        else:
+            raise ValueError(f"no flax initializer known for {name}")
+    return module
+
+
 class DiffusionPolicy:
     def __init__(self, config: PolicyConfig, device="cuda"):
         if config.vision_encoder not in ("autoencoder", "none"):
@@ -90,6 +129,28 @@ class DiffusionPolicy:
         self.schedule = S.make_schedule(
             config.noise_steps, config.noise_scheduler_type, self.device)
 
+    # -- params -------------------------------------------------------------
+    def init_params(self, generator: torch.Generator,
+                    encoder_params=None) -> Dict[str, torch.nn.Module]:
+        """Fresh {'unet', 'encoder'} modules on the policy's device, drawn
+        on the CPU from `generator` with flax's initializers
+        (`DiffusionPolicy.init_params`). encoder_params: a pretrained
+        Encoder, or its flax parameter tree, in place of a fresh one."""
+        cfg = self.config
+        cond_dim = cfg.obs_horizon * cfg.observation_dim
+        unet = build_model(cfg.model, cond_dim, out_channels=1,
+                           time_dim=cfg.time_dim, width=cfg.model_width)
+        params = {"unet": init_module_(unet, generator).to(self.device)}
+        if cfg.has_encoder:
+            if encoder_params is None:
+                enc = init_module_(Encoder(cfg.vision_latent), generator)
+            elif isinstance(encoder_params, torch.nn.Module):
+                enc = encoder_params
+            else:
+                enc = encoder_from_jax(encoder_params, "cpu")
+            params["encoder"] = enc.to(self.device)
+        return params
+
     # -- conditioning -------------------------------------------------------
     def encode_images(self, params, images: torch.Tensor) -> torch.Tensor:
         """(B, T, 96, 96, 3) -> (B, T, latent)."""
@@ -99,15 +160,21 @@ class DiffusionPolicy:
 
     def obs_cond(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """(B, T_obs * obs_dim): position, action, velocity, image features
-        (precomputed `image_features`, or `image` encoded here)."""
-        T = self.config.obs_horizon
+        (precomputed `image_features`, or `image` encoded here). Unless
+        `train_encoder`, the features carry no gradient (the JAX package's
+        stop_gradient) and the encoder runs under no_grad."""
+        cfg = self.config
+        T = cfg.obs_horizon
         parts = [batch["position"][:, :T], batch["action"][:, :T],
                  batch["velocity"][:, :T]]
-        if self.config.has_encoder:
+        if cfg.has_encoder:
             if "image_features" in batch:
-                parts.append(batch["image_features"][:, :T])
+                feats = batch["image_features"][:, :T]
             else:
-                parts.append(self.encode_images(params, batch["image"][:, :T]))
+                with torch.set_grad_enabled(torch.is_grad_enabled()
+                                            and cfg.train_encoder):
+                    feats = self.encode_images(params, batch["image"][:, :T])
+            parts.append(feats if cfg.train_encoder else feats.detach())
         cond = torch.cat(parts, dim=-1)
         return cond.reshape(cond.shape[0], -1)
 
@@ -128,6 +195,35 @@ class DiffusionPolicy:
         """Overwrite the first inpaint_horizon rows."""
         return torch.cat([inpaint.to(x.dtype),
                           x[:, self.config.inpaint_horizon:]], dim=1)
+
+    # -- training loss ------------------------------------------------------
+    def loss(self, params, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             t: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The denoising loss (`DiffusionPolicy.loss`): the inpaint rows and
+        the prediction noised to t by `add_noise`, the inpaint rows written
+        back, and the f32 MSE of the U-Net's eps against the noise over the
+        whole vector. t (B,) and noise (B, horizon, 5) are drawn from
+        `generator` (on its device) unless given; the noise is rounded to
+        the batch's dtype, as JAX draws it in that dtype."""
+        cfg = self.config
+        cond = self.obs_cond(params, batch)
+        inpaint = self.inpaint_vector(batch)
+        vec = torch.cat([inpaint, self.prediction_vector(batch)], dim=1)
+        B = vec.shape[0]
+        if t is None:
+            t = _draw(lambda shape, **kw: torch.randint(
+                0, cfg.noise_steps, shape, **kw), (B,), generator)
+        if noise is None:
+            noise = _draw(torch.randn, tuple(vec.shape), generator)
+        t = t.to(vec.device)
+        noise = noise.to(device=vec.device, dtype=vec.dtype)
+        x_noisy = self._constrain(S.add_noise(self.schedule, vec, noise, t),
+                                  inpaint)
+        eps = params["unet"](x_noisy[..., None], t, cond)[..., 0]
+        # the mean in f32 whatever the nets compute in
+        return torch.mean((noise.float() - eps.float()) ** 2)
 
     # -- sampling -----------------------------------------------------------
     def init_noise(self, B: int, generator: Optional[torch.Generator] = None

@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"attention_core": "attention_core.cu",
            "sample_banked": "sample_banked.cu",
            "conv3x3": "conv3x3.cu",
-           "gn_act": "gn_act.cu"}
+           "gn_act": "gn_act.cu",
+           "conv_dw": "conv_dw.cu"}
 
 
 @dataclass

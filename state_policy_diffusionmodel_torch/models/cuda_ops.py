@@ -17,12 +17,33 @@ Counterpart of `state_policy_diffusionmodel_tpu/models/pallas_ops.py`.
   Pallas ones: `conv3x3_cuda` (K3, `csrc/conv3x3.cu`), `gn_act_cuda` (K4,
   `csrc/gn_act.cu`) and `double_conv_cuda` (K5, two of each).
 
+- Training takes the JAX package's backward selector too, read once at
+  import into `CONV_BWD`: `SPDM_CONV_BWD=pallas` keeps the plain conv
+  forward and computes the conv weight gradient with the hand-written K6
+  (`conv_dw_cuda`, `csrc/conv_dw.cu`; plain version `conv_dw_ref`) for
+  CUDA tensors with min(Cin, Cout) >= 8 and B*H*W >= 1024 (`select_conv`
+  -> `conv3x3_t`, the counterparts of `_select_conv` and `_conv3x3_t`).
+
+Gradients. A kernel writes into a fresh tensor through ctypes, so its
+result has no autograd history. Every kernel on a differentiable path runs
+inside a `torch.autograd.Function` whose backward copies the JAX package's
+VJP in plain PyTorch: `AttentionCore` (`_attn_bwd`, on both devices, as
+JAX's `attention_core` is a custom VJP on the CPU too), `Conv3x3Kernel`
+(`_conv3x3_bwd`), `Conv3x3T` (`_conv3x3_t_bwd`, whose weight gradient is
+K6) and `DoubleConvKernel` (`_dc_bwd`: the plain DoubleConv recomputed and
+differentiated). Each takes its forward (or, for `Conv3x3T`, its weight
+gradient) as an argument: the kernel for CUDA tensors, the plain version
+on the CPU, so the CPU tests run the very backward the card runs. The raw
+`*_cuda` wrappers raise when grad mode is on and an input requires grad: a
+kernel reached outside its Function fails loudly instead of cutting the
+gradient.
+
 Each kernel wrapper counts its launches: `conv3x3_cuda.launches`,
-`gn_act_cuda.launches`, `double_conv_cuda.launches` (K5's calls) and
-`attention_core.launches` (K1's, on its dispatcher), each also while a
-caller has the module's dispatcher patched over. A wrapper given a CUDA
-tensor launches its kernel or raises; it never falls back to the plain
-version.
+`gn_act_cuda.launches`, `double_conv_cuda.launches` (K5's calls),
+`conv_dw_cuda.launches` (K6's) and `attention_core.launches` (K1's, on its
+dispatcher), each also while a caller has the module's dispatcher patched
+over. A wrapper given a CUDA tensor launches its kernel or raises; it never
+falls back to the plain version.
 
 Tensors are NHWC at these functions, as in the JAX package. Conv weights
 are OIHW (`(Cout, Cin, 3, 3)`), the layout `F.conv2d` takes and the one the
@@ -46,6 +67,8 @@ GN_EPS = 1e-6  # flax GroupNorm / LayerNorm default
 CONV_PATH = os.environ.get("SPDM_CONV_PATH", "xla9")
 if os.environ.get("SPDM_PALLAS_CONV", "0") == "1":
     CONV_PATH = "pallas"
+# the training-backward selector (pallas_ops.py:57-62): "pallas" = K6
+CONV_BWD = os.environ.get("SPDM_CONV_BWD", "")
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -86,6 +109,18 @@ def _check_cuda(name: str, tensors, strided=()) -> None:
         raise ValueError(f"{name}: tensors must be contiguous")
 
 
+def _refuse_grad(name: str, tensors) -> None:
+    """Raise where a raw kernel would cut the gradient: grad mode on and an
+    input that requires grad. The differentiable paths reach the kernels
+    inside their autograd Functions, where grad mode is off."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad; the kernel's result would "
+            "carry no gradient. Call the differentiable dispatcher, or run "
+            "under torch.no_grad()")
+
+
 def _rc(name: str, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
@@ -115,7 +150,9 @@ def _conv_lib() -> ctypes.CDLL:
 def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch K3 on x's device and current stream: x (B, H, W, Cin), w
     (Cout, Cin, 3, 3), one dtype (float32 or bfloat16), both contiguous.
-    Raises on anything else and on a refused launch."""
+    Raises on anything else, on a refused launch and, with grad mode on,
+    on an input that requires grad."""
+    _refuse_grad("conv3x3_cuda", (x, w))
     _check_cuda("conv3x3_cuda", (x, w))
     if (x.dim() != 4 or w.dim() != 4
             or tuple(w.shape[1:]) != (x.shape[3], 3, 3)):
@@ -143,12 +180,163 @@ def takes_conv_kernel(x: torch.Tensor, cin: int) -> bool:
             and B * H * W >= 1024)
 
 
+def flip_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The kernel of dx: w_flip[ci, co, i, j] = w[co, ci, 2-i, 2-j], OIHW
+    (`_conv3x3_bwd`'s flipped, transposed w9)."""
+    return w.flip((2, 3)).transpose(0, 1).contiguous()
+
+
+class Conv3x3Kernel(torch.autograd.Function):
+    """`_conv3x3_p`: forward `fwd(x, w)` (K3 for CUDA tensors), backward
+    `_conv3x3_bwd`: dx = conv3x3(g, w_flip) through the dispatcher (K3
+    again on the conv-kernel path), dw = conv_dw_ref in f32, each cast to
+    its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, fwd, x, w):
+        ctx.save_for_backward(x, w)
+        return fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dx = conv3x3(g, flip_kernel(w)).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            dw = conv_dw_ref(x, g).to(w.dtype)
+        return None, dx, dw
+
+
 def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """3x3 same-padding conv, NHWC; w is OIHW. K3 on the `pallas` conv path
-    for CUDA tensors with Cin >= 8 and B*H*W >= 1024, else the plain
-    version."""
+    """3x3 same-padding conv, NHWC; w is OIHW. K3 (in `Conv3x3Kernel`) on
+    the `pallas` conv path for CUDA tensors with Cin >= 8 and
+    B*H*W >= 1024, else `select_conv` (`pallas_ops.conv3x3`)."""
     if takes_conv_kernel(x, x.shape[3]):
-        return conv3x3_cuda(x, w)
+        return Conv3x3Kernel.apply(conv3x3_cuda, x, w)
+    return select_conv(x, w)
+
+
+# ---------------------------------------------------------------------------
+# K6: conv weight gradient, dw[co, ci, i, j] = sum xpad[b, h+i, w+j, ci]
+#     * g[b, h, w, co]
+# ---------------------------------------------------------------------------
+
+def conv_dw_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6 (`_conv_dw_pallas`): the 3x3 conv's weight
+    gradient at NHWC activation x and cotangent g, as nine f32 products of
+    the shifted zero-padded x with g (`_conv3x3_bwd`'s dots), OIHW
+    (Cout, Cin, 3, 3) in f32."""
+    B, H, W, Cin = x.shape
+    Cout = g.shape[-1]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    g2 = g.float().reshape(-1, Cout).t()
+    taps = [g2 @ xp[:, i:i + H, j:j + W, :].reshape(-1, Cin)
+            for i in range(3) for j in range(3)]
+    return torch.stack(taps, dim=-1).reshape(Cout, Cin, 3, 3)
+
+
+# pixels per K step of the kernel, and the fewest steps a chunk may have
+_DW_STEP, _DW_MIN_STEPS = 16, 4
+_DW_TILE_CI, _DW_TILE_CO = 32, 64
+
+
+def conv_dw_plan(pixels: int, cin: int, cout: int,
+                 n_sm: int) -> tuple[int, int]:
+    """(chunks, pixels per chunk) for K6: the B*H*W pixels split so that
+    the grid of (Cin/32) x (Cout/64) channel tiles x chunks holds about two
+    blocks per SM, each chunk at least 64 pixels, a whole number of 16-pixel
+    steps."""
+    tiles = -(-cin // _DW_TILE_CI) * -(-cout // _DW_TILE_CO)
+    steps = -(-pixels // _DW_STEP)
+    want = -(-2 * n_sm // tiles)
+    chunks = max(1, min(want, steps // _DW_MIN_STEPS))
+    per = -(-steps // chunks) * _DW_STEP
+    return -(-pixels // per), per
+
+
+def _dw_lib() -> ctypes.CDLL:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    return _typed_lib("conv_dw", {
+        f"conv_dw_{d}": [p, p, p, p, i32, i32, i32, i32, i32, i32, i32, p]
+        for d in _KERNEL_DTYPES.values()})
+
+
+def conv_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch K6 on x's device and current stream: x (B, H, W, Cin) and g
+    (B, H, W, Cout), one dtype (float32 or bfloat16), both contiguous;
+    returns dw (Cout, Cin, 3, 3) in float32. Raises on anything else, on a
+    refused launch and, with grad mode on, on an input that requires
+    grad."""
+    _refuse_grad("conv_dw_cuda", (x, g))
+    _check_cuda("conv_dw_cuda", (x, g))
+    if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
+        raise ValueError(f"conv_dw_cuda: x {tuple(x.shape)} and g "
+                         f"{tuple(g.shape)} are not NHWC of one B, H, W")
+    B, H, W, Cin = x.shape
+    Cout = g.shape[3]
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    chunks, per = conv_dw_plan(B * H * W, Cin, Cout, n_sm)
+    out = torch.empty((Cout, Cin, 3, 3), dtype=torch.float32,
+                      device=x.device)
+    ws = (torch.empty((chunks, Cout * Cin * 9), dtype=torch.float32,
+                      device=x.device) if chunks > 1 else None)
+    with torch.cuda.device(x.device):
+        rc = getattr(_dw_lib(), f"conv_dw_{_KERNEL_DTYPES[x.dtype]}")(
+            x.data_ptr(), g.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, H, W, Cin, Cout,
+            chunks, per, _stream(x))
+    _rc("conv_dw", rc, f"x {tuple(x.shape)}, Cout {Cout}, {x.dtype}")
+    conv_dw_cuda.launches += 1
+    return out
+
+
+conv_dw_cuda.launches = 0
+
+
+class Conv3x3T(torch.autograd.Function):
+    """`_conv3x3_t`: the plain conv forward; backward dx = the plain conv
+    of g with w_flip, dw = `dw_fn(x, g)` (K6 for CUDA tensors) in f32, each
+    cast to its input's dtype (`_conv3x3_t_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, dw_fn, x, w):
+        ctx.dw_fn = dw_fn
+        ctx.save_for_backward(x, w)
+        return conv3x3_ref(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dx = conv3x3_ref(g, flip_kernel(w)).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            dw = ctx.dw_fn(x.contiguous(), g).to(w.dtype)
+        return None, dx, dw
+
+
+def conv3x3_t(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The training conv of `SPDM_CONV_BWD=pallas` on CUDA tensors: plain
+    forward, K6 weight gradient."""
+    return Conv3x3T.apply(conv_dw_cuda, x, w)
+
+
+def takes_dw_kernel(x: torch.Tensor, cin: int, cout: int) -> bool:
+    """`_select_conv`'s rule for K6 on a CUDA tensor."""
+    B, H, W, _ = x.shape
+    return (x.is_cuda and CONV_BWD == "pallas" and min(cin, cout) >= 8
+            and B * H * W >= 1024)
+
+
+def select_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable conv (`_select_conv`): `conv3x3_t` (K6 weight
+    gradient) under `SPDM_CONV_BWD=pallas` on its shape rule, else the
+    plain conv (PyTorch autograd)."""
+    if takes_dw_kernel(x, x.shape[3], w.shape[0]):
+        return conv3x3_t(x, w)
     return conv3x3_ref(x, w)
 
 
@@ -205,7 +393,9 @@ def gn_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """Launch K4 on x's device and current stream. x and x_res (B, H, W, C)
     and gamma, beta (C,) contiguous; ps and pb (B, C), both or neither, with
     unit channel stride (a row stride is taken as it is). One dtype, float32
-    or bfloat16. Raises on anything else and on a refused launch."""
+    or bfloat16. Raises on anything else, on a refused launch and, with
+    grad mode on, on an input that requires grad."""
+    _refuse_grad("gn_act_cuda", (x, gamma, beta, ps, pb, x_res))
     if (ps is None) != (pb is None):
         raise ValueError("gn_act_cuda: ps and pb go together")
     post = [] if ps is None else [ps, pb]
@@ -247,9 +437,11 @@ def double_conv_ref(x, w1, w2, g1, b1, g2, b2, ps, pb,
                     residual: bool = False):
     """Plain version of K5, `pallas_ops._double_conv_xla`: conv -> GN ->
     GELU -> conv -> GN -> ps*y+pb [-> GELU(y + x)], NHWC, rounded to x's
-    dtype after each conv and each norm. ps/pb are (B, Cout)."""
-    h = gn_act_ref(conv3x3_ref(x, w1), g1, b1, gelu=True)
-    return gn_act_ref(conv3x3_ref(h, w2), g2, b2, ps, pb,
+    dtype after each conv and each norm. ps/pb are (B, Cout). The convs go
+    through `select_conv`, as `_double_conv_xla`'s do, so K6 computes their
+    weight gradients under `SPDM_CONV_BWD=pallas`."""
+    h = gn_act_ref(select_conv(x, w1), g1, b1, gelu=True)
+    return gn_act_ref(select_conv(h, w2), g2, b2, ps, pb,
                       x if residual else None)
 
 
@@ -257,7 +449,8 @@ def double_conv_cuda(x, w1, w2, g1, b1, g2, b2, ps, pb,
                      residual: bool = False):
     """K5 as the TPU's `_dc_tpu` composes it: K3, K4 (GELU), K3, K4
     (affine[, residual]), four launches on x's stream; raises as the two
-    wrappers do."""
+    wrappers do, before any launch."""
+    _refuse_grad("double_conv_cuda", (x, w1, w2, g1, b1, g2, b2, ps, pb))
     h = gn_act_cuda(conv3x3_cuda(x, w1), g1, b1, gelu=True)
     out = gn_act_cuda(conv3x3_cuda(h, w2), g2, b2, ps, pb,
                       x if residual else None)
@@ -268,12 +461,40 @@ def double_conv_cuda(x, w1, w2, g1, b1, g2, b2, ps, pb,
 double_conv_cuda.launches = 0
 
 
+class DoubleConvKernel(torch.autograd.Function):
+    """`_dc_p`: forward `fwd(...)` (K5 for CUDA tensors); backward `_dc_bwd`,
+    the plain composition `double_conv_ref` recomputed under grad and
+    differentiated, so its convs take `select_conv` (K6 on
+    `SPDM_CONV_BWD=pallas`)."""
+
+    @staticmethod
+    def forward(ctx, fwd, residual, x, w1, w2, g1, b1, g2, b2, ps, pb):
+        ctx.residual = residual
+        ctx.save_for_backward(x, w1, w2, g1, b1, g2, b2, ps, pb)
+        return fwd(x, w1, w2, g1, b1, g2, b2, ps, pb, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[2:]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(())
+        if wanted:
+            with torch.enable_grad():
+                out = double_conv_ref(*inputs, ctx.residual)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (None, None, *(next(grads) if n else None for n in need))
+
+
 def double_conv(x, w1, w2, g1, b1, g2, b2, ps, pb, residual: bool = False):
-    """The U-Net's conv block, NHWC; w1/w2 OIHW, ps/pb (B, Cout). K5 on the
-    `pallas` conv path for CUDA tensors with min(Cin, Cmid) >= 8 and
-    B*H*W >= 1024 (`pallas_ops.double_conv`), else the plain version."""
+    """The U-Net's conv block, NHWC; w1/w2 OIHW, ps/pb (B, Cout). K5 (in
+    `DoubleConvKernel`) on the `pallas` conv path for CUDA tensors with
+    min(Cin, Cmid) >= 8 and B*H*W >= 1024 (`pallas_ops.double_conv`), else
+    the plain version."""
     if takes_conv_kernel(x, min(x.shape[3], w1.shape[0])):
-        return double_conv_cuda(x, w1, w2, g1, b1, g2, b2, ps, pb, residual)
+        return DoubleConvKernel.apply(double_conv_cuda, residual, x, w1, w2,
+                                      g1, b1, g2, b2, ps, pb)
     return double_conv_ref(x, w1, w2, g1, b1, g2, b2, ps, pb, residual)
 
 
@@ -321,7 +542,9 @@ def _attention_lib() -> ctypes.CDLL:
 def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         num_heads: int) -> torch.Tensor:
     """Launch the CUDA kernel on q's device and current stream; raises on
-    any input it does not take and on a refused launch."""
+    any input it does not take, on a refused launch and, with grad mode
+    on, on an input that requires grad."""
+    _refuse_grad("attention_core_cuda", (q, k, v))
     B, T, C = q.shape
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("attention_core_cuda: q, k, v must be on one CUDA "
@@ -354,20 +577,60 @@ def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def attention_core_bwd(q, k, v, g, num_heads: int):
+    """`_attn_bwd` in plain PyTorch: P recomputed in f32 from q*scale and k,
+    then dv, dp, ds = P (dp - sum(dp P)), dq and dk, each cast to its
+    input's dtype."""
+    B, T, C = q.shape
+    Dh = C // num_heads
+    f32 = lambda t: t.reshape(B, T, num_heads, Dh).float()
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(Dh))))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", f32(q) * scale,
+                                   f32(k)), dim=-1)
+    gf = f32(g)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, f32(v))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, f32(k)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, f32(q)) * scale
+    pack = lambda t, like: t.reshape(B, T, C).to(like.dtype)
+    return pack(dq, q), pack(dk, k), pack(dv, v)
+
+
+class AttentionCore(torch.autograd.Function):
+    """JAX's `attention_core` custom VJP: forward `fwd(q, k, v, heads)` (K1
+    for CUDA tensors on its shape rule), backward `attention_core_bwd`."""
+
+    @staticmethod
+    def forward(ctx, fwd, num_heads, q, k, v):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v)
+        return fwd(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (None, None,
+                *attention_core_bwd(q, k, v, g.contiguous(), ctx.num_heads))
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    num_heads: int = 1) -> torch.Tensor:
     """Per-head softmax(q k^T / sqrt(Dh)) v over packed (B, T, heads*Dh)
-    tensors (head h in feature columns [h*Dh, (h+1)*Dh)).
+    tensors (head h in feature columns [h*Dh, (h+1)*Dh)), differentiable
+    through `AttentionCore`.
 
     CUDA tensors with T >= 16 and Dh >= 8 go to the CUDA kernel, which
     counts its launches in `attention_core.launches`; other shapes and CPU
     tensors take the plain version."""
     B, T, C = q.shape
     if q.is_cuda and T >= 16 and C // num_heads >= 8:
-        return attention_core_cuda(q, k, v, num_heads)
-    if q.is_cuda or q.device.type == "cpu":
-        return attention_core_ref(q, k, v, num_heads)
-    raise ValueError(f"attention_core: unsupported device {q.device}")
+        fwd = attention_core_cuda
+    elif q.is_cuda or q.device.type == "cpu":
+        fwd = attention_core_ref
+    else:
+        raise ValueError(f"attention_core: unsupported device {q.device}")
+    return AttentionCore.apply(fwd, num_heads, q, k, v)
 
 
 attention_core.launches = 0

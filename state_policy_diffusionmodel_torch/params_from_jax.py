@@ -14,7 +14,9 @@ is renamed and its layout mapped:
   (C, heads*Dh).
 
 Every array is cast to float32. Loading is strict: a leaf left over, a
-parameter missing or a shape that differs raises.
+parameter missing or a shape that differs raises. `params_to_jax` is the
+inverse: the port's modules (or any tensors laid out like their
+parameters, such as Adam's moments) as keystr leaves in the flax layout.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from . import resolve_device
 from .models import Encoder, UNetFiLM
+from .models.layers import _MHA
 
 _KEY = re.compile(r"\['([^']*)'\]")
 
@@ -137,3 +140,48 @@ def params_from_jax(tree: dict, device="cuda") -> Dict[str, torch.nn.Module]:
     if "encoder" in tree:
         params["encoder"] = encoder_from_jax(tree["encoder"], device)
     return params
+
+
+def _jax_leaf(mod: torch.nn.Module, parent, leaf: str, arr: np.ndarray):
+    """(flax leaf name, array in flax layout) for parameter `leaf` of
+    module `mod`, whose parent module is `parent`: `_torch_leaf`
+    inverted."""
+    heads = parent.num_heads if isinstance(parent, _MHA) else None
+    if leaf in ("conv1_kernel", "conv2_kernel"):
+        return leaf, arr.transpose(2, 3, 1, 0)
+    if leaf == "weight":
+        if arr.ndim == 4:                                   # OIHW -> HWIO
+            return "kernel", arr.transpose(2, 3, 1, 0)
+        if heads is not None and mod is not parent.out:     # q/k/v
+            return "kernel", arr.T.reshape(arr.shape[1], heads, -1)
+        if heads is not None:                               # out
+            return "kernel", arr.T.reshape(heads, -1, arr.shape[0])
+        return "kernel", arr.T
+    if leaf == "bias" and heads is not None and mod is not parent.out:
+        return leaf, arr.reshape(heads, -1)
+    return leaf, arr
+
+
+def params_to_jax(params: Dict[str, torch.nn.Module],
+                  values=None) -> Dict[str, np.ndarray]:
+    """{keystr: float32 array in flax layout} for every parameter of the
+    policy modules ({'unet': ..., 'encoder': ...}), under the names
+    `jax.tree_util.keystr` gives the JAX package's tree. `values` maps a
+    parameter to a tensor of its shape to emit in its place (an optimizer
+    moment, say); by default the parameter itself."""
+    out = {}
+    for top, module in params.items():
+        parents = {}
+        for path, mod in module.named_modules():
+            for child_name, child in mod.named_children():
+                parents[child] = mod
+            for leaf, p in mod.named_parameters(recurse=False):
+                t = p if values is None else values[p]
+                # a copy: a CPU tensor's numpy() is a view, and the caller
+                # may update the tensor in place while the snapshot is kept
+                arr = np.array(t.detach().float().cpu())
+                name, arr = _jax_leaf(mod, parents.get(mod), leaf, arr)
+                keys = [top, *(path.split(".") if path else []), name]
+                out["".join(f"['{k}']" for k in keys)] = \
+                    np.ascontiguousarray(arr)
+    return out

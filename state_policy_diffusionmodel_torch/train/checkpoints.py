@@ -1,36 +1,92 @@
-"""Read a trained run directory: params.npz, hparams.yaml and STATS.pkl.
+"""Run directories: params.npz checkpoints, hparams.yaml, STATS.pkl and the
+trainer's resume sidecar, read and written without yaml or orbax.
 
-Counterpart of the reading half of
-`state_policy_diffusionmodel_tpu/train/checkpoints.py` plus
+Counterpart of `state_policy_diffusionmodel_tpu/train/checkpoints.py` plus
 `data/dataset.py::load_stats`. A run directory holds
-`checkpoints/epoch=K/params.npz` (keystr leaves, possibly float16), a flat
-`hparams.yaml` of `key: value` lines and the `STATS.pkl` normalization
-sidecar. The yaml is parsed here, so no yaml package is needed.
+`checkpoints/epoch=K/params.npz` (keystr leaves in the flax layout, possibly
+float16), `checkpoints_ema/` alike, a flat `hparams.yaml` of `key: value`
+lines, the `STATS.pkl` normalization sidecar and
+`trainer_state/{opt/params.npz, meta.yaml}`. The JAX package writes the
+npz form when orbax is absent (as on the GPU machine) and reads it always,
+so run directories load in both directions. The yaml is parsed and written
+here, in the text `yaml.safe_dump` gives.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
-import pickle
 import re
 from typing import Any, Dict, Optional
 
+import numpy as np
+
 from .. import resolve_device
+from ..data.dataset import load_stats
 from ..diffusion.policy import DiffusionPolicy, PolicyConfig
 from ..models import MODEL_REGISTRY
-from ..params_from_jax import load_npz, params_from_jax
+from ..params_from_jax import (
+    load_into, load_npz, params_from_jax, params_to_jax,
+)
 
 _CONFIG_KEYS = ("noise_steps", "obs_horizon", "pred_horizon",
                 "inpaint_horizon", "prediction_dim", "model",
                 "noise_scheduler_type", "step_size", "time_dim",
                 "vision_encoder", "vision_latent", "uniform_init",
-                "model_width")
+                "train_encoder", "model_width")
 
 
 def checkpoint_dir(out_dir: str, epoch: int,
                    subdir: str = "checkpoints") -> str:
     return os.path.join(out_dir, subdir, f"epoch={epoch}")
+
+
+def save_npz(path: str, leaves: Dict[str, np.ndarray],
+             dtype=None) -> None:
+    """{keystr: array} as an npz (floating leaves cast to `dtype` when
+    given), written to a temporary name and renamed into place."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if dtype is not None:
+        leaves = {k: v.astype(dtype) if np.issubdtype(v.dtype, np.floating)
+                  else v for k, v in leaves.items()}
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **leaves)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(out_dir: str, params, epoch: int,
+                    subdir: str = "checkpoints") -> str:
+    """`<out_dir>/<subdir>/epoch=K/params.npz` of the policy modules (or of
+    {keystr: array} leaves already taken from them), in the JAX package's
+    npz form."""
+    path = checkpoint_dir(out_dir, epoch, subdir)
+    leaves = params if _is_leaves(params) else params_to_jax(params)
+    save_npz(os.path.join(path, "params.npz"), leaves)
+    return path
+
+
+def _is_leaves(tree) -> bool:
+    return all(isinstance(v, np.ndarray) for v in tree.values())
+
+
+def load_checkpoint(path: Optional[str], like):
+    """Load `<path>/params.npz` into the policy modules `like` (in place, at
+    their dtype; float16 stores are widened) and return them."""
+    if path is None:
+        raise FileNotFoundError(
+            "no checkpoint found: if this was an --ema load, the run has "
+            "no checkpoints_ema/ (trained without --ema_decay?)")
+    tree = load_npz(os.path.join(path, "params.npz"))
+    extra = sorted(set(tree) - set(like))
+    if extra:
+        raise ValueError(f"{path}: unexpected parameter trees {extra}")
+    for name, module in like.items():
+        dtype = next(module.parameters()).dtype
+        load_into(module, tree[name])
+        module.to(dtype)
+    return like
 
 
 def latest_checkpoint(out_dir: str,
@@ -54,11 +110,17 @@ _INT = re.compile(r"[-+]?\d+$")
 _FLOAT = re.compile(r"[-+]?(\d+\.?\d*|\.\d+)([eE][-+]?\d+)?$")
 
 
+_SPECIAL = {".inf": math.inf, "+.inf": math.inf, "-.inf": -math.inf,
+            ".nan": math.nan}
+
+
 def _scalar(text: str) -> Any:
     if text in ("null", "~", ""):
         return None
     if text in ("true", "false"):
         return text == "true"
+    if text.lower() in _SPECIAL:
+        return _SPECIAL[text.lower()]
     if _INT.match(text):
         return int(text)
     if _FLOAT.match(text):
@@ -83,10 +145,80 @@ def load_hparams(path: str) -> Dict[str, Any]:
     return out
 
 
-def load_stats(path: str) -> dict:
-    """The normalization stats: the first entry of the pickled list."""
-    with open(path, "rb") as f:
-        return pickle.load(f)[0]
+_PLAIN = re.compile(r"[A-Za-z0-9_./][A-Za-z0-9_./-]*$")
+_RESERVED = {"null", "true", "false", "yes", "no", "on", "off", "y", "n",
+             "~"}
+
+
+def yaml_scalar(value: Any) -> str:
+    """One value as `yaml.safe_dump` writes it: null, true/false, ints,
+    floats by repr with `.0` put before a bare exponent (1.0e-06), .inf and
+    .nan, strings plain where nothing else could read them as another type,
+    else single-quoted."""
+    if value is None:
+        return "null"
+    if isinstance(value, (bool, np.bool_)):
+        return "true" if value else "false"
+    if isinstance(value, (int, np.integer)):
+        return str(int(value))
+    if isinstance(value, (float, np.floating)):
+        v = float(value)
+        if v != v:
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    text = str(value)
+    if (_PLAIN.match(text) and text.lower() not in _RESERVED
+            and isinstance(_scalar(text), str)):
+        return text
+    return "'" + text.replace("'", "''") + "'"
+
+
+def dump_flat_yaml(payload: Dict[str, Any], path: str) -> str:
+    """A flat mapping as `yaml.safe_dump` writes it: sorted `key: value`
+    lines."""
+    with open(path, "w") as f:
+        for k in sorted(payload):
+            f.write(f"{k}: {yaml_scalar(payload[k])}\n")
+    return path
+
+
+def save_hparams(out_dir: str, policy_config, train_config=None) -> str:
+    """hparams.yaml with the policy + train config, `train_`-prefixed, and
+    `observation_dim` (the JAX package's `save_hparams`)."""
+    payload: Dict[str, Any] = dict(dataclasses.asdict(policy_config))
+    if train_config is not None:
+        payload.update({f"train_{k}": v for k, v in
+                        dataclasses.asdict(train_config).items()})
+    payload.setdefault("observation_dim", policy_config.observation_dim)
+    return dump_flat_yaml(payload, os.path.join(out_dir, "hparams.yaml"))
+
+
+def save_train_state(out_dir: str, opt_leaves: Dict[str, np.ndarray],
+                     meta: Dict[str, Any]) -> str:
+    """The resume sidecar, latest only: the optimizer state as keystr
+    leaves of optax's tree (`trainer_state/opt/params.npz`) and the host
+    metadata (`trainer_state/meta.yaml`)."""
+    path = os.path.join(out_dir, "trainer_state")
+    save_npz(os.path.join(path, "opt", "params.npz"), opt_leaves)
+    dump_flat_yaml(meta, os.path.join(path, "meta.yaml"))
+    return path
+
+
+def load_train_state(out_dir: str):
+    """({keystr: array} optimizer leaves, meta) or None without a resume
+    sidecar."""
+    path = os.path.join(out_dir, "trainer_state")
+    meta_path = os.path.join(path, "meta.yaml")
+    if not os.path.exists(meta_path):
+        return None
+    with np.load(os.path.join(path, "opt", "params.npz")) as data:
+        leaves = {k: np.asarray(data[k]) for k in data.files}
+    return leaves, load_hparams(meta_path)
 
 
 def ema_subdir(run_dir: str) -> str:

@@ -309,3 +309,89 @@ def test_conv_kernels_refuse_what_they_do_not_take(device):
         cuda_ops.gn_act_cuda(x, v, v, p, None)
     with pytest.raises(TypeError):
         cuda_ops.double_conv_cuda(x, w, w.double(), v, v, v, v, p, p)
+
+
+# ---------------------------------------------------------------------------
+# K6 and the training path's autograd Functions
+# ---------------------------------------------------------------------------
+
+# (H, W, Cin, Cout) of the convs of one r5blend training step that K6 takes
+# on SPDM_CONV_BWD=pallas (B=256), distinct, and two ragged shapes (Cin,
+# Cout off the 32 x 64 channel tiles; B*H*W off the 16-pixel step)
+DW_SHAPES = [(32, 8, 64, 64), (16, 4, 64, 64), (16, 4, 64, 128),
+             (16, 4, 128, 128), (8, 2, 128, 128), (8, 2, 128, 256),
+             (8, 2, 256, 256), (4, 1, 256, 256), (4, 1, 256, 512),
+             (4, 1, 512, 512), (4, 1, 512, 256), (8, 2, 512, 512),
+             (8, 2, 512, 128), (16, 4, 256, 256), (16, 4, 256, 64),
+             (32, 8, 128, 128), (32, 8, 128, 64)]
+# fp32: summation order over up to 65,536 pixels; bf16 inputs: the same
+# exact products in f32, so the same bound
+DW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,cin,cout", DW_SHAPES + [(5, 3, 20, 24),
+                                                      (4, 1, 33, 70)])
+def test_conv_dw_kernel_matches_plain_and_repeats(device, H, W, cin, cout,
+                                                  dtype):
+    gen = torch.Generator(device=device).manual_seed(H * W + cin + cout)
+    B = 256 if cin % 32 == 0 else 7
+    x = _randn(gen, B, H, W, cin).to(dtype)
+    g = _randn(gen, B, H, W, cout).to(dtype)
+    before = cuda_ops.conv_dw_cuda.launches
+    got = cuda_ops.conv_dw_cuda(x, g)
+    again = cuda_ops.conv_dw_cuda(x, g)
+    torch.cuda.synchronize()
+    assert cuda_ops.conv_dw_cuda.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (cout, cin, 3, 3)
+    assert torch.equal(got, again)            # no atomics: bit for bit
+    assert _rel(got, cuda_ops.conv_dw_ref(x, g)) <= DW_TOL[dtype]
+
+
+def _grads(fn, args):
+    args = [a.detach().requires_grad_() for a in args]
+    out = fn(*args)
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device=out.device).manual_seed(5), device=out.device).to(out.dtype)
+    return [out] + list(torch.autograd.grad(out, args, g))
+
+
+def test_functions_kernel_path_gradients_equal_plain_path(device):
+    """Each autograd Function with its kernel against the same Function (or
+    plain autograd) on the plain version: outputs and every input's
+    gradient within 1e-4 of the largest value (fp32)."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    x, w = _randn(gen, 256, 16, 4, 64), _randn(gen, 128, 64, 3, 3,
+                                               scale=0.05)
+    q, k, v = (_randn(gen, 256, 64, 128) for _ in range(3))
+    dc = [_randn(gen, 256, 16, 4, 64), _randn(gen, 128, 64, 3, 3,
+                                                  scale=0.06),
+          _randn(gen, 128, 128, 3, 3, scale=0.04),
+          1 + 0.2 * _randn(gen, 128), 0.1 * _randn(gen, 128),
+          1 + 0.2 * _randn(gen, 128), 0.1 * _randn(gen, 128),
+          1 + 0.2 * _randn(gen, 256, 128), 0.3 * _randn(gen, 256, 128)]
+    F = cuda_ops
+    pairs = [
+        (lambda x, w: F.Conv3x3Kernel.apply(F.conv3x3_cuda, x, w),
+         lambda x, w: F.Conv3x3Kernel.apply(F.conv3x3_ref, x, w), (x, w)),
+        (lambda x, w: F.Conv3x3T.apply(F.conv_dw_cuda, x, w),
+         F.conv3x3_ref, (x, w)),
+        (lambda *a: F.DoubleConvKernel.apply(F.double_conv_cuda, False, *a),
+         lambda *a: F.double_conv_ref(*a), dc),
+        (lambda q, k, v: F.AttentionCore.apply(F.attention_core_cuda, 4, q,
+                                               k, v),
+         lambda q, k, v: F.attention_core_ref(q, k, v, 4), (q, k, v))]
+    for kernel, plain, args in pairs:
+        for a, b in zip(_grads(kernel, args), _grads(plain, args)):
+            assert _rel(a, b) <= 1e-4
+
+
+def test_raw_wrappers_refuse_grad_on_the_card(device):
+    x = torch.randn((4, 16, 4, 8), device=device, requires_grad=True)
+    w = torch.randn((8, 8, 3, 3), device=device)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cuda_ops.conv3x3_cuda(x, w)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cuda_ops.conv_dw_cuda(x, x)
+    with torch.no_grad():
+        assert cuda_ops.conv_dw_cuda(x, x).shape == (8, 8, 3, 3)

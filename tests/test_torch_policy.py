@@ -278,7 +278,8 @@ def test_ring_policy_r5blend_full_width_matches_jax():
 # isolation and devices
 # ---------------------------------------------------------------------------
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "state_policy_diffusionmodel_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tensorstore", "yaml",
+              "orbax", "state_policy_diffusionmodel_tpu")
 PORT_DIR = REPO / "state_policy_diffusionmodel_torch"
 
 
@@ -300,17 +301,21 @@ def test_port_sources_import_no_jax():
     assert {"physics/car.py", "track/geometry.py", "track/generator.py",
             "track/texture.py", "render/raster.py", "render/cuda_sampler.py",
             "envs/car_racing.py", "envs/vector.py", "bench.py",
-            "models/cuda_ops.py", "kernels/build.py"} <= names
+            "models/cuda_ops.py", "kernels/build.py", "data/normalize.py",
+            "data/replay_buffer.py", "data/dataset.py", "train/loop.py",
+            "train/lr_schedule.py", "train/checkpoints.py",
+            "utils/printing.py", "cli/train_policy.py"} <= names
     bad = {str(f.relative_to(REPO)): r for f in files
            for r in _imported_roots(f) if r in _FORBIDDEN}
     assert not bad
     # the CUDA sources: every one is built (chip_smoke.py builds SOURCES),
-    # K3 and K4 among them, and none includes PyTorch's or JAX's headers
+    # K3, K4 and K6 among them, and none includes PyTorch's or JAX's
+    # headers
     from state_policy_diffusionmodel_torch.kernels import build
 
     cu = sorted(p.name for p in (PORT_DIR / "csrc").glob("*.cu"))
     assert cu == sorted(build.SOURCES.values())
-    assert {"conv3x3.cu", "gn_act.cu"} <= set(cu)
+    assert {"conv3x3.cu", "gn_act.cu", "conv_dw.cu"} <= set(cu)
     for name in cu:
         includes = [line for line in (PORT_DIR / "csrc" / name).read_text()
                     .splitlines() if line.startswith("#include")]
@@ -350,6 +355,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert td.DiffusionPolicy(cfg, device="cpu").device.type == "cpu"
     # the env, the renderer's inputs and the bench
     from state_policy_diffusionmodel_torch import bench, physics, track
+    from state_policy_diffusionmodel_torch.cli import train_policy
+    from state_policy_diffusionmodel_torch.data import DeviceWindowDataset
     from state_policy_diffusionmodel_torch.envs import vector
 
     bank = track.load_or_build_bank(2, bake=False, device="cpu")
@@ -369,6 +376,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: bench.bench_env(2, 1, 1, False, 2),
         lambda: bench.bench_policy(2, 1),
         lambda: bench.main(["--mode", "env_only"]),
+        # the training path: the device twin, the trainer's policy, the CLI
+        lambda: DeviceWindowDataset(None),
+        lambda: train_policy.main(["--dataset_name", "none",
+                                   "--no_sample_viz"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

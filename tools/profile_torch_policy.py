@@ -1,7 +1,9 @@
 """Where the time goes on the GPU, for the PyTorch/CUDA port.
 
-    python3 tools/profile_torch_policy.py [--what denoise|env_step|loop]
+    python3 tools/profile_torch_policy.py [--what denoise|env_step|loop|
+                                                 train_step]
                                           [--amp] [--conv-path PATH]
+                                          [--conv-bwd pallas]
 
 --what picks the work that is profiled, after a warm-up:
   denoise   one DDIM-10 denoise of artifacts/r5blend_best (10 U-Net
@@ -9,10 +11,15 @@
   env_step  one env_render step of 1024 envs on the 16-track bank (physics,
             tiles, both frames through K2, auto-reset);
   loop      one policy period of the closed loop: 5 frames of r5blend
-            driving 256 envs on the 4-track bank, one denoise among them.
+            driving 256 envs on the 4-track bank, one denoise among them;
+  train_step one optimizer step of r5blend at B=256 (loss, backward, the
+            clip, Adam, the EMA) on a random batch of 10 frames a window,
+            from r5blend's weights.
 --conv-path sets `cuda_ops.CONV_PATH` (xla9, xla or pallas; by default
 what SPDM_CONV_PATH / SPDM_PALLAS_CONV selected at import): `pallas` runs
-the U-Net's conv blocks through the K3-K5 kernels.
+the U-Net's conv blocks through the K3-K5 kernels. --conv-bwd sets
+`cuda_ops.CONV_BWD` (SPDM_CONV_BWD): `pallas` computes the conv weight
+gradients with K6.
 It prints the wall time (host clock around work that ends in a
 synchronize, unprofiled and profiled), the device time summed over the
 kernels, the device's idle share of the wall time, the device time by
@@ -42,6 +49,7 @@ CATEGORIES = [
     ("K2 sample_banked", ("sample_banked_kernel",)),
     ("K3 conv3x3", ("conv3x3_kernel", "conv3x3_mma_kernel")),
     ("K4 gn_act", ("gn_act_kernel",)),
+    ("K6 conv_dw", ("conv_dw_kernel", "sum_chunks_kernel")),
     ("conv / gemm", ("conv", "cudnn", "gemm", "xmma", "cutlass", "sm90_",
                      "wgrad", "dgrad", "fprop", "implicit")),
     ("reduction", ("reduce",)),
@@ -93,6 +101,28 @@ def make_work(what: str, amp: bool, dev):
 
     policy, params, stats = load_run(os.path.join(REPO, "artifacts",
                                                   "r5blend_best"), dev)
+    if what == "train_step":
+        import copy
+
+        from state_policy_diffusionmodel_torch.train import loop as train
+
+        cfg = train.TrainConfig(lr=4e-4, batch_size=N_ENVS, ema_decay=0.9995)
+        opt = train.make_optimizer(cfg, params)
+        step = train.make_train_step(policy, params, opt, amp,
+                                     copy.deepcopy(params), cfg.ema_decay)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        r = lambda *s: torch.randn(s, generator=gen, device=dev)
+        batch = {"position": 0.1 * r(N_ENVS, 40, 2),
+                 "velocity": 0.3 * r(N_ENVS, 40, 2),
+                 "action": 0.5 * r(N_ENVS, 40, 3),
+                 "image": torch.rand((N_ENVS, 10, 96, 96, 3), generator=gen,
+                                     device=dev)}
+
+        def train_step():
+            return step(batch, cfg.lr, gen)
+
+        return (f"one train step (EMA on), B={N_ENVS}, r5blend, {tag}",
+                train_step)
     if what == "loop":
         U = 4
         bank = load_or_build_bank(U, bake=True, device=dev)
@@ -133,12 +163,15 @@ def make_work(what: str, amp: bool, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--what", default="denoise",
-                    choices=["denoise", "env_step", "loop"])
+                    choices=["denoise", "env_step", "loop", "train_step"])
     ap.add_argument("--amp", action="store_true",
                     help="bf16 nets, f32 scheduler math")
     ap.add_argument("--conv-path", choices=["xla9", "xla", "pallas"],
                     default=None, help="the U-Net's conv path "
                     "(cuda_ops.CONV_PATH); pallas = the K3-K5 kernels")
+    ap.add_argument("--conv-bwd", choices=["", "pallas"], default=None,
+                    help="the training backward's selector "
+                    "(cuda_ops.CONV_BWD); pallas = the K6 weight gradient")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_policy: needs a GPU", file=sys.stderr)
@@ -152,9 +185,12 @@ def main() -> int:
 
     if args.conv_path is not None:
         cuda_ops.CONV_PATH = args.conv_path
+    if args.conv_bwd is not None:
+        cuda_ops.CONV_BWD = args.conv_bwd
     dev = torch.device("cuda", 0)
     what, work = make_work(args.what, args.amp, dev)
-    what += f", conv path {cuda_ops.CONV_PATH}"
+    what += (f", conv path {cuda_ops.CONV_PATH}, conv backward "
+             f"{cuda_ops.CONV_BWD or 'plain'}")
 
     for _ in range(3):
         work()
