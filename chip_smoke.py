@@ -15,7 +15,10 @@ Phases, each printed with its seconds:
   K3-K5       the conv path's kernels against their plain versions at every
               shape of one r5blend U-Net forward on the conv-kernel path
               (B=256, fp32 and bf16): conv3x3 (K3) at its 17 conv shapes,
-              with cuDNN's channels-last F.conv2d timed as the yardstick;
+              twice (bit-identical), with cuDNN's channels-last F.conv2d
+              timed as the yardstick, the achieved TFLOP/s, its plan and
+              the ptxas line (registers, shared memory, spills) of each of
+              its kernels;
               gn_act (K4) at its 10 shapes in its four variants (GroupNorm,
               +GELU, +affine, +affine+residual); double_conv (K5) at the 14
               distinct shapes of the 15 DoubleConvs;
@@ -23,8 +26,9 @@ Phases, each printed with its seconds:
               at the 17 distinct conv shapes of one r5blend training step
               (B=256, fp32 and bf16), twice (bit-identical), with cuDNN's
               weight gradient (aten.convolution_backward, dw only) timed
-              as the yardstick; and K1's backward (plain torch, as JAX's)
-              timed at the five attention shapes;
+              as the yardstick, the achieved TFLOP/s, its plan and the
+              ptxas lines; and K1's backward (plain torch, as JAX's) timed
+              at the five attention shapes;
   K2, env     the sample_banked CUDA kernel against its plain version at
               B=1024 on the 16-track bank, on random poses (edges and
               off-field included) and later on the env's poses after 50
@@ -88,8 +92,10 @@ Phases, each printed with its seconds:
               and amp, on the four paths: the median ms of 5 steps after 2
               (host wall time ending in a synchronize), samples/s, launches.
 Then one line holds the kernels as JSON (with the policy, env, loop and
-training readings), one the card's name and power limit, and the last line
-is {"ok": true, "device": {...}}. Any failed check exits non-zero first.
+training readings; each kernel's sums over one forward or step in fp32,
+and in bf16 under "bf16"), one the card's name and power limit, and the
+last line is {"ok": true, "device": {...}}. Any failed check exits non-zero
+first.
 
 TF32 is off for matmuls and cuDNN convolutions throughout
 (torch.backends.cuda.matmul.allow_tf32 = False,
@@ -103,6 +109,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -272,6 +279,13 @@ def bound(byte_ms, op_ms):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
+def conv_taps(W):
+    """The taps of a 3x3 same-padded conv (or its weight gradient) that
+    can touch the image: all nine, but where W == 1 the columns dj = 0 and
+    2 lie wholly in the zero halo, so the function needs only three."""
+    return 3 if W == 1 else 9
+
+
 def check_k1(cuda_ops, device):
     """Phase 3: K1 alone. Returns per-call records."""
     import torch.nn.functional as F
@@ -361,13 +375,68 @@ def timed(rec, kernel, plain, library=None, iters=20):
     rec["library_ms"] = None if library is None else graph_ms(library, iters)
 
 
-def check_k3(cuda_ops, device):
+def ptxas_report(log: str, names=("conv3x3_", "conv_dw_")) -> list[dict]:
+    """Registers, static shared memory and spills of each kernel whose name
+    holds one of `names`, from nvcc's `-Xptxas -v` output (build.Built.log),
+    names demangled by c++filt where the machine has one."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = dict(kernel=m.group(1)) if any(
+                n in m.group(1) for n in names) else None
+            if cur is not None:
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["registers"] = int(m.group(1))
+            cur["static_smem"] = int(smem.group(1)) if smem else 0
+    demangler = shutil.which("c++filt") or shutil.which("cu++filt")
+    if rows and demangler:
+        out = subprocess.run([demangler], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, name in zip(rows, out):
+                r["kernel"] = re.sub(r"\(anonymous namespace\)::|\(.*", "",
+                                     name).replace("void ", "")
+    return rows
+
+
+def print_ptxas(build, lib: str) -> list[dict]:
+    """Print (and return) the ptxas line of each kernel of library `lib`;
+    fails where the build's log reports none."""
+    rows = ptxas_report(build.build_all([lib])[lib].log)
+    if not rows:
+        raise Failed(f"{lib}: nvcc's log reports no kernel (ptxas -v)")
+    for r in rows:
+        print(f"  ptxas {r['kernel']}: {r.get('registers')} registers, "
+              f"{r.get('static_smem')} B static smem, spills "
+              f"{r.get('spill_stores')} / {r.get('spill_loads')} B "
+              "(stores / loads)", flush=True)
+    return rows
+
+
+def check_k3(cuda_ops, device, build):
     """K3 alone at the 17 distinct conv shapes of the forward, fp32 and
-    bf16: against its plain version, with its time, the plain version's,
-    cuDNN's (F.conv2d on the channels-last views of x and w, TF32 off) and
-    the bound. Returns per-shape records."""
+    bf16: against its plain version, twice (bit-identical), with its time,
+    the plain version's, cuDNN's (F.conv2d on the channels-last views of x
+    and w, TF32 off), the bound of the taps the conv needs (three where
+    W == 1; the nine-tap bound beside it), the achieved TFLOP/s of those
+    taps and the plan (with the ring depth the launcher takes); first the
+    ptxas line of each kernel. Returns per-shape records and the ptxas
+    rows."""
     import torch.nn.functional as F
 
+    ptxas = print_ptxas(build, "conv3x3")
     gen = torch.Generator(device=device).manual_seed(4321)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -377,26 +446,41 @@ def check_k3(cuda_ops, device):
             w = (torch.randn((cout, cin, 3, 3), generator=gen, device=device)
                  * (2.0 / (9 * cin)) ** 0.5).to(dtype)
             key = f"{H}x{W} {cin}->{cout}"
-            rec = check_kernel("K3", records, key, cuda_ops.conv3x3_cuda(x, w),
+            got = cuda_ops.conv3x3_cuda(x, w)
+            again = cuda_ops.conv3x3_cuda(x, w)
+            rec = check_kernel("K3", records, key, got,
                                cuda_ops.conv3x3_ref(x, w), CONV_TOL, dtype,
                                H=H, W=W, Cin=cin, Cout=cout)
+            if not torch.equal(got, again):
+                raise Failed(f"K3 {dtype} {key}: two runs differ")
+            plan = cuda_ops.conv3x3_plan(N_ENVS, H, W, cin, cout, dtype,
+                                         cuda_ops._n_sm(device))
+            rec["plan"] = dict(route="mma" if plan.mma else "cuda cores",
+                               bm=plan.bm, bn=plan.bn, taps=plan.taps,
+                               ring=cuda_ops.conv3x3_ring(plan, W),
+                               splits=plan.splits, blocks=plan.blocks)
             x_cl = x.permute(0, 3, 1, 2)
             w_cl = w.contiguous(memory_format=torch.channels_last)
             timed(rec, lambda: cuda_ops.conv3x3_cuda(x, w),
                   lambda: cuda_ops.conv3x3_ref(x, w),
                   lambda: F.conv2d(x_cl, w_cl, padding=1))
             M = N_ENVS * H * W
-            n_bytes = (x.numel() + w.numel() + M * cout) * itemsize(dtype)
-            flops = 2 * M * 9 * cin * cout
-            rec["bound_ms"], rec["bound_by"] = bound(
-                n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_OPS[dtype] * 1e3)
+            byte_ms = (x.numel() + w.numel() + M * cout) * itemsize(dtype) \
+                / HBM_BYTES_PER_S * 1e3
+            tap_ms = 2 * M * cin * cout / PEAK_OPS[dtype] * 1e3
+            taps = conv_taps(W)
+            rec["bound_ms"], rec["bound_by"] = bound(byte_ms, taps * tap_ms)
+            rec["bound_ms_9taps"] = max(byte_ms, 9 * tap_ms)
+            rec["bound_ms_taps_computed"] = max(byte_ms, plan.taps * tap_ms)
+            rec["tflops"] = 2 * M * taps * cin * cout / rec["ms"] / 1e9
             print(f"  K3 {rec['dtype']:8s} {key:16s}: rel err "
-                  f"{rec['max_rel_err']:.2e}  kernel {rec['ms']:.4f} ms  "
-                  f"plain {rec['plain_ms']:.4f}  cuDNN "
-                  f"{rec['library_ms']:.4f}  bound {rec['bound_ms']:.4f} "
-                  f"({rec['bound_by']})",
-                  flush=True)
-    return records
+                  f"{rec['max_rel_err']:.2e}, repeat equal  kernel "
+                  f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s)  plain "
+                  f"{rec['plain_ms']:.4f}  cuDNN {rec['library_ms']:.4f}  "
+                  f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}, {taps} "
+                  f"taps; 9 taps {rec['bound_ms_9taps']:.4f})  "
+                  f"plan {rec['plan']}", flush=True)
+    return records, ptxas
 
 
 def gn_inputs(B, H, W, C, dtype, gen, device):
@@ -465,7 +549,8 @@ def check_k5(cuda_ops, device):
     """K5 at the 14 distinct DoubleConv shapes of the forward, fp32 and
     bf16: against its plain version, with its time, the plain version's and
     the bound of the whole block (x, the weights, the vectors read once, the
-    output written once; both convs' operations). Returns records."""
+    output written once; both convs' operations at the taps they need).
+    Returns records."""
     gen = torch.Generator(device=device).manual_seed(2468)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -481,7 +566,7 @@ def check_k5(cuda_ops, device):
             M = N_ENVS * H * W
             n_bytes = (sum(t.numel() for t in a[:-1]) + M * cout) \
                 * itemsize(dtype)
-            flops = 2 * M * 9 * (cin + cout) * cout
+            flops = 2 * M * conv_taps(W) * (cin + cout) * cout
             rec["bound_ms"], rec["bound_by"] = bound(
                 n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_OPS[dtype] * 1e3)
             print(f"  K5 {rec['dtype']:8s} {key:20s}: rel err "
@@ -738,12 +823,13 @@ def frame_bytes(a, b):
 
 def per_forward(records, calls, key, dtype="float32"):
     """Sums over one forward's calls (fp32 unless `dtype` says otherwise) of
-    each timing, from the records of the distinct shapes; the bound
-    labelled by the side that sets most of the summed bound."""
+    each timing and bound, from the records of the distinct shapes; the
+    bound labelled by the side that sets most of the summed bound."""
     by_key = {key(r): r for r in records if r["dtype"] == dtype}
     rows = [by_key[c] for c in calls]
     out = {k: sum(r[k] for r in rows)
-           for k in ("ms", "plain_ms", "bound_ms")}
+           for k in ("ms", "plain_ms", "bound_ms", "bound_ms_9taps",
+                     "bound_ms_taps_computed") if k in rows[0]}
     out["library_ms"] = (None if rows[0]["library_ms"] is None
                          else sum(r["library_ms"] for r in rows))
     side = {b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b)
@@ -755,8 +841,9 @@ def per_forward(records, calls, key, dtype="float32"):
 
 def conv_kernel_entries(k3, k4, k5, runs, loop):
     """The kernels line's K3-K5 entries: one forward's calls at B=256 in
-    fp32 (the main path's), launches from the fp32 closed loop on the
-    conv-kernel path, every per-shape record beside."""
+    fp32 (the main path's) and in bf16 (amp's) summed, launches from the
+    fp32 closed loop on the conv-kernel path, every per-shape record
+    beside."""
     csrc = "state_policy_diffusionmodel_torch/csrc/"
     tpu = "state_policy_diffusionmodel_tpu/models/pallas_ops.py:"
     launches = loop["fp32"]["conv_path"]["launches"]
@@ -772,6 +859,7 @@ def conv_kernel_entries(k3, k4, k5, runs, loop):
              DC_SHAPES,
              lambda r: (r["H"], r["W"], r["Cin"], r["Cout"], r["residual"]))):
         fwd = per_forward(recs, calls, key)
+        fwd_bf16 = per_forward(recs, calls, key, "bfloat16")
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": f"{tpu}{line}", "launches": launches[k],
@@ -779,7 +867,11 @@ def conv_kernel_entries(k3, k4, k5, runs, loop):
             "max_rel_err_on_policy": on_policy[f"{k}_max_rel_err"],
             "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
             "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-            "library_ms": fwd["library_ms"], "per_shape": recs})
+            "library_ms": fwd["library_ms"], "bf16": fwd_bf16,
+            "per_shape": recs})
+        for b in ("bound_ms_9taps", "bound_ms_taps_computed"):
+            if b in fwd:
+                entries[-1][b] = fwd[b]
     entries[-1]["sources"] = [csrc + "conv3x3.cu", csrc + "gn_act.cu"]
     return entries
 
@@ -869,21 +961,26 @@ def time_train_steps(policy, params0, twin, seed, amp, device, counts):
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
-def k6_bound(B, H, W, cin, cout, dtype):
-    """x and g read once, dw (f32) written once; 2*P*9*Cin*Cout operations
-    at the peak rate for the inputs' type."""
+def k6_bound(B, H, W, cin, cout, dtype, taps):
+    """x and g read once, dw (f32) written once; 2*P*taps*Cin*Cout
+    operations at the peak rate for the inputs' type."""
     P = B * H * W
     n_bytes = P * (cin + cout) * itemsize(dtype) + 9 * cin * cout * 4
     return bound(n_bytes / HBM_BYTES_PER_S * 1e3,
-                 2 * P * 9 * cin * cout / PEAK_OPS[dtype] * 1e3)
+                 2 * P * taps * cin * cout / PEAK_OPS[dtype] * 1e3)
 
 
-def check_k6(cuda_ops, device):
+def check_k6(cuda_ops, device, build):
     """K6 alone at the 17 distinct conv shapes of a training step, fp32 and
     bf16: against its plain version, twice (bit-identical), with its time,
     the plain version's, cuDNN's weight gradient (aten.convolution_backward
-    on the channels-last views, dw only; a yardstick, never on the path) and
-    the bound. Returns per-shape records."""
+    on the channels-last views, dw only; a yardstick, never on the path),
+    the bound of the taps the gradient needs (three where W == 1; beside it
+    the nine-tap bound and that of the taps the kernel computes), the
+    achieved TFLOP/s of the taps needed and the plan (with the ring depth
+    the launcher takes); first the ptxas line of each kernel. Returns
+    per-shape records and the ptxas rows."""
+    ptxas = print_ptxas(build, "conv_dw")
     gen = torch.Generator(device=device).manual_seed(1357)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -900,6 +997,12 @@ def check_k6(cuda_ops, device):
                                H=H, W=W, Cin=cin, Cout=cout)
             if not torch.equal(got, again):
                 raise Failed(f"K6 {dtype} {key}: two runs differ")
+            plan = cuda_ops.conv_dw_plan(N_ENVS, H, W, cin, cout, dtype,
+                                         cuda_ops._n_sm(device))
+            rec["plan"] = dict(route="mma" if plan.mma else "cuda cores",
+                               taps=plan.taps,
+                               ring=cuda_ops.conv_dw_ring(plan, H, W),
+                               chunks=plan.chunks, blocks=plan.blocks)
             w_cl = torch.empty((cout, cin, 3, 3), device=device,
                                dtype=dtype).contiguous(
                 memory_format=torch.channels_last)
@@ -909,14 +1012,24 @@ def check_k6(cuda_ops, device):
                   lambda: torch.ops.aten.convolution_backward(
                       g_cl, x_cl, w_cl, None, [1, 1], [1, 1], [1, 1], False,
                       [0, 0], 1, [False, True, False]), iters=10)
+            taps = conv_taps(W)
             rec["bound_ms"], rec["bound_by"] = k6_bound(N_ENVS, H, W, cin,
-                                                        cout, dtype)
+                                                        cout, dtype, taps)
+            rec["bound_ms_9taps"] = k6_bound(N_ENVS, H, W, cin, cout, dtype,
+                                             9)[0]
+            rec["bound_ms_taps_computed"] = k6_bound(
+                N_ENVS, H, W, cin, cout, dtype, plan.taps)[0]
+            flops = 2 * N_ENVS * H * W * taps * cin * cout
+            rec["tflops"] = flops / rec["ms"] / 1e9
             print(f"  K6 {rec['dtype']:8s} {key:16s}: rel err "
                   f"{rec['max_rel_err']:.2e}, repeat equal  kernel "
-                  f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f}  cuDNN "
-                  f"{rec['library_ms']:.4f}  bound {rec['bound_ms']:.4f} "
-                  f"({rec['bound_by']})", flush=True)
-    return records
+                  f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s)  plain "
+                  f"{rec['plain_ms']:.4f}  cuDNN {rec['library_ms']:.4f}  "
+                  f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}, {taps} "
+                  f"taps; 9 taps {rec['bound_ms_9taps']:.4f}, {plan.taps} "
+                  f"computed {rec['bound_ms_taps_computed']:.4f})  "
+                  f"plan {rec['plan']}", flush=True)
+    return records, ptxas
 
 
 def attention_bwd_ms(cuda_ops, device):
@@ -1262,13 +1375,13 @@ def main() -> int:
     with phase("K1 attention_core vs plain"):
         k1 = check_k1(cuda_ops, device)
     with phase("K3 conv3x3 vs plain"):
-        k3 = check_k3(cuda_ops, device)
+        k3, k3_ptxas = check_k3(cuda_ops, device, build)
     with phase("K4 gn_act vs plain"):
         k4 = check_k4(cuda_ops, device)
     with phase("K5 double_conv vs plain"):
         k5 = check_k5(cuda_ops, device)
     with phase("K6 conv_dw vs plain"):
-        k6 = check_k6(cuda_ops, device)
+        k6, k6_ptxas = check_k6(cuda_ops, device, build)
         k1_bwd_ms = attention_bwd_ms(cuda_ops, device)
         print(f"  K1's backward (plain torch, as JAX), the five calls of a "
               f"training step at B={N_ENVS}, fp32: {k1_bwd_ms:.4f} ms")
@@ -1732,6 +1845,9 @@ def main() -> int:
         "bound_ms": fwd_bound_ms,
         "bound_by": fwd_bound_by,
         "library_ms": sum(r["library_ms"] for r in fp32),
+        # the same five calls in bf16 (amp's forward), summed likewise
+        "bf16": per_forward(k1, ATTN_SHAPES, lambda r: (r["T"], r["C"]),
+                            "bfloat16"),
         # the backward is plain torch, as JAX's VJP is plain XLA
         "backward": "plain torch (attention_core_bwd)",
         "backward_ms": k1_bwd_ms,
@@ -1757,6 +1873,7 @@ def main() -> int:
         "per_case": k2,
     })
     kernels += conv_kernel_entries(k3, k4, k5, runs, loop)
+    next(k for k in kernels if k["name"] == "conv3x3")["ptxas"] = k3_ptxas
     dw_key = lambda r: (r["H"], r["W"], r["Cin"], r["Cout"])
     step = per_forward(k6, TRAIN_CONVS, dw_key)
     step_bf16 = per_forward(k6, TRAIN_CONVS, dw_key, "bfloat16")
@@ -1770,8 +1887,10 @@ def main() -> int:
             "K6"],
         "max_abs_err": step["max_abs_err"], "ms": step["ms"],
         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+        "bound_ms_9taps": step["bound_ms_9taps"],
+        "bound_ms_taps_computed": step["bound_ms_taps_computed"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
-        "bf16": step_bf16, "per_shape": k6})
+        "bf16": step_bf16, "ptxas": k6_ptxas, "per_shape": k6})
     print(json.dumps({"kernels": kernels, "policy": runs, "env": envs_run,
                       "closed_loop": loop, "training": training}))
     print(smi)

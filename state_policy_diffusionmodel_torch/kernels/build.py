@@ -3,9 +3,11 @@
 Each source under `state_policy_diffusionmodel_torch/csrc/` has a plain C
 interface (no PyTorch headers), so one `nvcc` call turns it into a shared
 library in seconds. Libraries go to `build/` at the repository root, named
-by a hash of the source and the flags, so an edited source builds anew and
-an unchanged one is loaded as it is. Nothing is built when this module is
-imported: the first call that needs a kernel builds it.
+by a hash of the source, every shared header (`csrc/*.cuh`) and the flags,
+so an edited source or header builds anew and an unchanged one is loaded as
+it is; nvcc's log is kept beside each library (`.log`) and read back with
+it. Nothing is built when this module is imported: the first call that
+needs a kernel builds it.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ class Built:
     name: str
     path: Path
     seconds: float      # nvcc wall time; 0.0 when the library was cached
-    log: str            # nvcc's output (ptxas register and spill report)
+    log: str            # nvcc's output (ptxas register and spill report),
+                        # also when the library was cached
 
 
 _built: dict[str, Built] = {}
@@ -56,8 +59,12 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path in build/: its name and a hash of its source, of
+    every header a source may include, and of the flags."""
+    h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -72,7 +79,9 @@ def build_all(names=None) -> dict[str, Built]:
             continue
         out = _target(name)
         if out.exists():
-            _built[name] = Built(name, out, 0.0, "")
+            log = out.with_suffix(".log")
+            _built[name] = Built(name, out, 0.0,
+                                 log.read_text() if log.exists() else "")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -87,6 +96,9 @@ def build_all(names=None) -> dict[str, Built]:
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             continue
+        log_tmp = tmp.with_suffix(".log")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, out.with_suffix(".log"))
         os.replace(tmp, out)
         _built[name] = Built(name, out, seconds, log)
     if failed:

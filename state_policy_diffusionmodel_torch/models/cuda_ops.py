@@ -23,6 +23,10 @@ Counterpart of `state_policy_diffusionmodel_tpu/models/pallas_ops.py`.
   (`conv_dw_cuda`, `csrc/conv_dw.cu`; plain version `conv_dw_ref`) for
   CUDA tensors with min(Cin, Cout) >= 8 and B*H*W >= 1024 (`select_conv`
   -> `conv3x3_t`, the counterparts of `_select_conv` and `_conv3x3_t`).
+- K3 and K6 launch per-shape plans computed here (`conv3x3_plan`,
+  `conv_dw_plan`: tile, split-K parts or pixel chunks), passed to the C
+  launchers as integers; each launcher picks its shared-memory ring itself
+  (`conv3x3_ring`, `conv_dw_ring` report the depth).
 
 Gradients. A kernel writes into a fresh tensor through ctypes, so its
 result has no autograd history. Every kernel on a differentiable path runs
@@ -53,6 +57,7 @@ K3 kernel reads.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 import os
@@ -140,18 +145,148 @@ def conv3x3_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
 
 
+def _n_sm(device: torch.device) -> int:
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """K3's launch plan for one shape (`csrc/conv3x3.cu`).
+
+    The output is tiled as `m_tiles` blocks of `bm` pixels by `n_tiles` of
+    `bn` channels; K = taps x Cin is walked in `slices` channel slices of
+    `ck` channels, each with all `taps` taps; `splits` parts of `per_split`
+    slices each run as separate blocks that write f32 partial sums
+    (`ws_elems`), added in order by a second pass. The weights are
+    repacked into `wt_elems` elements ([tap][cin_pad][cout_pad], bf16 on
+    the tensor cores, f32 otherwise)."""
+    mma: bool
+    bm: int
+    bn: int
+    ck: int
+    taps: int
+    slices: int
+    splits: int
+    per_split: int
+    m_tiles: int
+    n_tiles: int
+    cin_pad: int
+    cout_pad: int
+    wt_elems: int
+    ws_elems: int
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles * self.splits
+
+
+def takes_conv_mma(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """K3's tensor-core rule: bf16, whole 16-channel K slices, 8-channel
+    fragments (every r5blend shape). Other shapes take the CUDA cores."""
+    return dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0
+
+
+# The split rule, from tools/sweep_conv_plans.py on an H100: a split-K part
+# keeps at least 4 slices (2 where W == 1) on the tensor cores and 4 on the
+# CUDA cores, and the grid grows by splitting while it stays within the
+# blocks an SM runs at once: two of the tensor cores' 128 x 64 tile, one of
+# the 256-pixel tiles (136-205 KB of ring), and on the CUDA cores one and a
+# half (a second partial sum costs more than a second block gains there).
+_CONV_MIN_SLICES = {(True, 9): 4, (True, 3): 2, (False, 9): 4, (False, 3): 4}
+# The tensor cores' tile: 256 pixels where there are 4,096 or more (one
+# block an SM, 64-pixel warp tiles), else 128 (the 4x1 level: more blocks);
+# 128 channels for a conv this large (M*Cin*Cout, 19 GFLOP at 9 taps):
+# 64 x 64 warp tiles, a third more math per shared load.
+_CONV_WIDE_M = 4096
+_CONV_BIG = 1 << 30
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_plan(B: int, H: int, W: int, cin: int, cout: int,
+                 dtype: torch.dtype, n_sm: int = 132,
+                 aligned: bool = True) -> ConvPlan:
+    """K3's plan for x (B, H, W, cin) -> (B, H, W, cout) in `dtype` on a card
+    of `n_sm` SMs. Tensor cores where `takes_conv_mma` (and x is 16-byte
+    aligned): 256 x 64 tiles (128 x 64 at 1,024 pixels), 256 x 128 for the
+    largest convs. CUDA cores otherwise: 256 x 64 tiles. Where the tiles
+    leave SMs idle, the slices split into a power of two of parts (see
+    `_CONV_MIN_SLICES`). Cached: the wrapper asks for a plan on every
+    call."""
+    M = B * H * W
+    mma = aligned and takes_conv_mma(dtype, cin, cout)
+    taps = 3 if W == 1 else 9
+    if mma:
+        big = cout >= 128 and M * cin * cout >= _CONV_BIG
+        bm = 256 if M >= _CONV_WIDE_M else 128
+        bn = 128 if big and bm == 256 else 64
+        room = n_sm if bm == 256 else 2 * n_sm
+    else:
+        bm, bn = 256, 64
+        room = 3 * n_sm // 2
+    tiles = -(-M // bm) * -(-cout // bn)
+    most = max(1, -(-cin // _conv_ck(mma, taps))
+               // _CONV_MIN_SLICES[(mma, taps)])
+    splits = 1
+    while 2 * splits <= most and tiles * 2 * splits <= room:
+        splits *= 2
+    return _conv3x3_plan_for(B, H, W, cin, cout, mma, bm, bn, splits)
+
+
+def _conv_ck(mma: bool, taps: int) -> int:
+    """Input channels a K slice: 16 x 9 taps or 32 x 3 taps on the tensor
+    cores, 4 on the CUDA cores."""
+    return (16 if taps == 9 else 32) if mma else 4
+
+
+def _conv3x3_plan_for(B: int, H: int, W: int, cin: int, cout: int,
+                      mma: bool, bm: int, bn: int, splits: int) -> ConvPlan:
+    """The plan of a given route, tile and split (at most one part a slice;
+    parts of equal slices). Where W == 1 only the three dj = 1 taps are
+    computed. `conv3x3_plan` makes its choices through this;
+    tools/sweep_conv_plans.py times other choices."""
+    M = B * H * W
+    taps = 3 if W == 1 else 9
+    ck = _conv_ck(mma, taps)
+    m_tiles, n_tiles = -(-M // bm), -(-cout // bn)
+    slices = -(-cin // ck)
+    per_split = -(-slices // min(splits, slices))
+    splits = -(-slices // per_split)
+    cin_pad, cout_pad = slices * ck, n_tiles * bn
+    return ConvPlan(mma=mma, bm=bm, bn=bn, ck=ck, taps=taps, slices=slices,
+                    splits=splits, per_split=per_split, m_tiles=m_tiles,
+                    n_tiles=n_tiles, cin_pad=cin_pad, cout_pad=cout_pad,
+                    wt_elems=9 * cin_pad * cout_pad,
+                    ws_elems=splits * M * cout if splits > 1 else 0)
+
+
 def _conv_lib() -> ctypes.CDLL:
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    return _typed_lib("conv3x3", {
-        f"conv3x3_{d}": [p, p, p, i32, i32, i32, i32, i32, p]
-        for d in _KERNEL_DTYPES.values()})
+    types = {f"conv3x3_{d}": [p, p, p, p, p] + [i32] * 11 + [p]
+             for d in _KERNEL_DTYPES.values()}
+    types["conv3x3_ring"] = [i32] * 5
+    return _typed_lib("conv3x3", types)
+
+
+def conv3x3_ring(plan: ConvPlan, W: int) -> int:
+    """The shared-memory ring depth K3's launcher takes for `plan` at image
+    width W (0: it refuses the launch); on the card's build."""
+    return _conv_lib().conv3x3_ring(int(plan.mma), W, plan.bm, plan.bn,
+                                    plan.taps)
 
 
 def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch K3 on x's device and current stream: x (B, H, W, Cin), w
     (Cout, Cin, 3, 3), one dtype (float32 or bfloat16), both contiguous.
-    Raises on anything else, on a refused launch and, with grad mode on,
-    on an input that requires grad."""
+    The plan is `conv3x3_plan`'s; the repacked weights and the split-K
+    partial sums go to workspaces allocated here. Raises on anything else,
+    on a refused launch and, with grad mode on, on an input that requires
+    grad."""
     _refuse_grad("conv3x3_cuda", (x, w))
     _check_cuda("conv3x3_cuda", (x, w))
     if (x.dim() != 4 or w.dim() != 4
@@ -159,14 +294,30 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3x3_cuda: x {tuple(x.shape)} (NHWC) and w "
                          f"{tuple(w.shape)} (OIHW) do not match")
     B, H, W, Cin = x.shape
+    plan = conv3x3_plan(B, H, W, Cin, w.shape[0], x.dtype, _n_sm(x.device),
+                        aligned=x.data_ptr() % 16 == 0)
+    out = _conv3x3_launch(x, w, plan)
+    conv3x3_cuda.launches += 1
+    return out
+
+
+def _conv3x3_launch(x: torch.Tensor, w: torch.Tensor,
+                    plan: ConvPlan) -> torch.Tensor:
+    """K3 under `plan`, on inputs `conv3x3_cuda` has checked."""
+    B, H, W, Cin = x.shape
     Cout = w.shape[0]
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
+    wt = torch.empty(plan.wt_elems, device=x.device,
+                     dtype=x.dtype if plan.mma else torch.float32)
+    ws = (torch.empty(plan.ws_elems, dtype=torch.float32, device=x.device)
+          if plan.ws_elems else None)
     with torch.cuda.device(x.device):
         rc = getattr(_conv_lib(), f"conv3x3_{_KERNEL_DTYPES[x.dtype]}")(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W, Cin, Cout,
-            _stream(x))
-    _rc("conv3x3", rc, f"x {tuple(x.shape)}, Cout {Cout}, {x.dtype}")
-    conv3x3_cuda.launches += 1
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), wt.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, H, W, Cin, Cout,
+            int(plan.mma), plan.bm, plan.bn, plan.taps, plan.splits,
+            plan.per_split, _stream(x))
+    _rc("conv3x3", rc, f"x {tuple(x.shape)}, Cout {Cout}, {x.dtype}, {plan}")
     return out
 
 
@@ -237,58 +388,129 @@ def conv_dw_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps, dim=-1).reshape(Cout, Cin, 3, 3)
 
 
-# pixels per K step of the kernel, and the fewest steps a chunk may have
-_DW_STEP, _DW_MIN_STEPS = 16, 4
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """K6's launch plan for one shape (`csrc/conv_dw.cu`): blocks of 64
+    output channels x 32 input channels x the taps (9, or 3 where W == 1 on
+    the tensor cores), one per chunk of `chunk_pixels` pixels (a whole
+    number of `step`-pixel K steps, the last chunk possibly short); the
+    chunks' f32 partial sums take `ws_elems` ([chunk][Cout][9][Cin]) and a
+    second pass adds them in chunk order."""
+    mma: bool
+    taps: int
+    step: int
+    chunks: int
+    chunk_pixels: int
+    tiles: int
+    ws_elems: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.chunks
+
+
 _DW_TILE_CI, _DW_TILE_CO = 32, 64
+# pixels a K step, by route, and the fewest steps a chunk keeps
+_DW_STEP = {True: 64, False: 32}
+_DW_MIN_STEPS = 4
+_DW_MMA_MAX_PIXELS = 4096
 
 
-def conv_dw_plan(pixels: int, cin: int, cout: int,
-                 n_sm: int) -> tuple[int, int]:
-    """(chunks, pixels per chunk) for K6: the B*H*W pixels split so that
-    the grid of (Cin/32) x (Cout/64) channel tiles x chunks holds about two
-    blocks per SM, each chunk at least 64 pixels, a whole number of 16-pixel
-    steps."""
+def takes_dw_mma(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """K6's tensor-core rule: bf16 with 8-channel rows of x and g (every
+    r5blend shape). Other shapes take the CUDA cores."""
+    return dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def conv_dw_plan(B: int, H: int, W: int, cin: int, cout: int,
+                 dtype: torch.dtype, n_sm: int = 132,
+                 aligned: bool = True) -> DwPlan:
+    """K6's plan: the B*H*W pixels split into chunks so that the grid of
+    (Cin/32) x (Cout/64) channel tiles x chunks holds about two blocks per
+    SM, each chunk a whole number of K steps (64 pixels on the tensor
+    cores, 32 on the CUDA cores) and at least four of them, at most 4,096
+    pixels on the tensor cores. The count rounds down: a grid just past one
+    wave of two blocks per SM leaves a thin second wave that costs up to
+    half again. Cached, as `conv3x3_plan`."""
+    P = B * H * W
+    mma = aligned and takes_dw_mma(dtype, cin, cout)
     tiles = -(-cin // _DW_TILE_CI) * -(-cout // _DW_TILE_CO)
-    steps = -(-pixels // _DW_STEP)
-    want = -(-2 * n_sm // tiles)
-    chunks = max(1, min(want, steps // _DW_MIN_STEPS))
-    per = -(-steps // chunks) * _DW_STEP
-    return -(-pixels // per), per
+    steps = -(-P // _DW_STEP[mma])
+    chunks = max(1, min(2 * n_sm // tiles, steps // _DW_MIN_STEPS))
+    if mma:
+        # the tensor cores' f32 sums lose bits over a long K: 3.6e-5 of the
+        # largest |dw| at 32,768 pixels a chunk, 2e-6 at 2,048 (H100)
+        chunks = max(chunks, -(-P // _DW_MMA_MAX_PIXELS))
+    return _conv_dw_plan_for(B, H, W, cin, cout, mma, chunks)
+
+
+def _conv_dw_plan_for(B: int, H: int, W: int, cin: int, cout: int,
+                      mma: bool, chunks: int) -> DwPlan:
+    """The plan of a given route and chunk count (at most one chunk a K
+    step; chunks of equal steps, the last possibly short). `conv_dw_plan`
+    makes its choice through this; tools/sweep_conv_plans.py times other
+    counts."""
+    P = B * H * W
+    step = _DW_STEP[mma]
+    steps = -(-P // step)
+    per = -(-steps // max(1, min(chunks, steps))) * step
+    chunks = -(-P // per)
+    return DwPlan(mma=mma, taps=3 if mma and W == 1 else 9, step=step,
+                  chunks=chunks, chunk_pixels=per,
+                  tiles=-(-cin // _DW_TILE_CI) * -(-cout // _DW_TILE_CO),
+                  ws_elems=chunks * cout * 9 * cin)
 
 
 def _dw_lib() -> ctypes.CDLL:
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    return _typed_lib("conv_dw", {
-        f"conv_dw_{d}": [p, p, p, p, i32, i32, i32, i32, i32, i32, i32, p]
-        for d in _KERNEL_DTYPES.values()})
+    types = {f"conv_dw_{d}": [p, p, p, p] + [i32] * 9 + [p]
+             for d in _KERNEL_DTYPES.values()}
+    types["conv_dw_ring"] = [i32] * 3
+    return _typed_lib("conv_dw", types)
+
+
+def conv_dw_ring(plan: DwPlan, H: int, W: int) -> int:
+    """The shared-memory ring depth K6's launcher takes for `plan` on an
+    H x W image (0: it refuses the launch); on the card's build."""
+    return _dw_lib().conv_dw_ring(int(plan.mma), H, W)
 
 
 def conv_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch K6 on x's device and current stream: x (B, H, W, Cin) and g
     (B, H, W, Cout), one dtype (float32 or bfloat16), both contiguous;
-    returns dw (Cout, Cin, 3, 3) in float32. Raises on anything else, on a
-    refused launch and, with grad mode on, on an input that requires
-    grad."""
+    returns dw (Cout, Cin, 3, 3) in float32. The plan is `conv_dw_plan`'s;
+    the chunks' partial sums go to a workspace allocated here. Raises on
+    anything else, on a refused launch and, with grad mode on, on an input
+    that requires grad."""
     _refuse_grad("conv_dw_cuda", (x, g))
     _check_cuda("conv_dw_cuda", (x, g))
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(f"conv_dw_cuda: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} are not NHWC of one B, H, W")
     B, H, W, Cin = x.shape
+    plan = conv_dw_plan(B, H, W, Cin, g.shape[3], x.dtype, _n_sm(x.device),
+                        aligned=x.data_ptr() % 16 == 0
+                        and g.data_ptr() % 16 == 0)
+    out = _conv_dw_launch(x, g, plan)
+    conv_dw_cuda.launches += 1
+    return out
+
+
+def _conv_dw_launch(x: torch.Tensor, g: torch.Tensor,
+                    plan: DwPlan) -> torch.Tensor:
+    """K6 under `plan`, on inputs `conv_dw_cuda` has checked."""
+    B, H, W, Cin = x.shape
     Cout = g.shape[3]
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunks, per = conv_dw_plan(B * H * W, Cin, Cout, n_sm)
     out = torch.empty((Cout, Cin, 3, 3), dtype=torch.float32,
                       device=x.device)
-    ws = (torch.empty((chunks, Cout * Cin * 9), dtype=torch.float32,
-                      device=x.device) if chunks > 1 else None)
+    ws = torch.empty(plan.ws_elems, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = getattr(_dw_lib(), f"conv_dw_{_KERNEL_DTYPES[x.dtype]}")(
-            x.data_ptr(), g.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), B, H, W, Cin, Cout,
-            chunks, per, _stream(x))
-    _rc("conv_dw", rc, f"x {tuple(x.shape)}, Cout {Cout}, {x.dtype}")
-    conv_dw_cuda.launches += 1
+            x.data_ptr(), g.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            B, H, W, Cin, Cout, int(plan.mma), plan.taps, plan.chunks,
+            plan.chunk_pixels, _stream(x))
+    _rc("conv_dw", rc, f"x {tuple(x.shape)}, Cout {Cout}, {x.dtype}, {plan}")
     return out
 
 

@@ -191,6 +191,41 @@ def test_conv3x3_kernel_matches_plain(device, B, H, W, cin, cout, dtype):
     assert _rel(got, cuda_ops.conv3x3_ref(x, w)) <= CONV_TOL[dtype]
 
 
+# (B, H, W, Cin, Cout) for the plans' paths: split-K at the 8x2 and 4x1
+# levels (and one without), W = 1 (three taps; Cin 48 = a 32- and a
+# 16-channel slice) and W = 2, Cout off the channel tile, B*H*W off the
+# pixel tile, bf16 outside the tensor-core rule (Cin % 16, Cout % 8), fp32
+# with Cin or Cout off the 16-byte vectors, W = 3 and W = 16
+CONV_PLAN_EDGES = [(256, 8, 2, 128, 128), (256, 4, 1, 512, 256),
+                   (256, 8, 2, 512, 512), (37, 4, 1, 48, 40),
+                   (9, 8, 2, 32, 24), (5, 7, 3, 20, 12), (6, 5, 5, 16, 6),
+                   (3, 32, 8, 7, 130), (2, 16, 16, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,cin,cout", CONV_PLAN_EDGES)
+def test_conv3x3_kernel_plan_paths_match_plain_and_repeat(device, B, H, W,
+                                                          cin, cout, dtype):
+    gen = torch.Generator(device=device).manual_seed(B * W + cin * cout)
+    x = _randn(gen, B, H, W, cin, dtype=dtype)
+    w = _randn(gen, cout, cin, 3, 3, dtype=dtype, scale=(2 / (9 * cin)) ** .5)
+    plan = cuda_ops.conv3x3_plan(B, H, W, cin, cout, dtype,
+                                 cuda_ops._n_sm(device))
+    assert plan.mma == (dtype == torch.bfloat16 and cin % 16 == 0
+                        and cout % 8 == 0)
+    assert plan.taps == (3 if W == 1 else 9)
+    # the split-K shapes: both types at 8x2 128->128 and 4x1 512->256, the
+    # 256 x 128 tensor-core tile at 8x2 512->512
+    if B == 256 and (cin, dtype) != (512, torch.float32) or W == 1 and B == 256:
+        assert plan.splits > 1
+    got = cuda_ops.conv3x3_cuda(x, w)
+    again = cuda_ops.conv3x3_cuda(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, W, cout)
+    assert torch.equal(got, again)            # split-K adds in order
+    assert _rel(got, cuda_ops.conv3x3_ref(x, w)) <= CONV_TOL[dtype]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(256, 4, 1, 512), (8, 32, 8, 128),
                                    (3, 5, 3, 6)])
@@ -325,7 +360,8 @@ DW_SHAPES = [(32, 8, 64, 64), (16, 4, 64, 64), (16, 4, 64, 128),
              (8, 2, 512, 128), (16, 4, 256, 256), (16, 4, 256, 64),
              (32, 8, 128, 128), (32, 8, 128, 64)]
 # fp32: summation order over up to 65,536 pixels; bf16 inputs: the same
-# exact products in f32, so the same bound
+# exact products, summed in f32 by the tensor cores over chunks of at most
+# 4,096 pixels, so the same bound
 DW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
 
 
@@ -346,6 +382,68 @@ def test_conv_dw_kernel_matches_plain_and_repeats(device, H, W, cin, cout,
     assert got.dtype == torch.float32 and got.shape == (cout, cin, 3, 3)
     assert torch.equal(got, again)            # no atomics: bit for bit
     assert _rel(got, cuda_ops.conv_dw_ref(x, g)) <= DW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,cin,cout", CONV_PLAN_EDGES[3:])
+def test_conv_dw_kernel_plan_paths_match_plain_and_repeat(device, B, H, W,
+                                                          cin, cout, dtype):
+    """K6 off r5blend's shapes: W = 1 on the tensor cores (three taps, the
+    rest exactly zero), W = 2, 3 and 16, channels off the tiles and off the
+    16-byte vectors, bf16 outside the tensor-core rule."""
+    gen = torch.Generator(device=device).manual_seed(B * W + cin * cout)
+    x = _randn(gen, B, H, W, cin).to(dtype)
+    g = _randn(gen, B, H, W, cout).to(dtype)
+    plan = cuda_ops.conv_dw_plan(B, H, W, cin, cout, dtype,
+                                 cuda_ops._n_sm(device))
+    assert plan.mma == (dtype == torch.bfloat16 and cin % 8 == 0
+                        and cout % 8 == 0)
+    got = cuda_ops.conv_dw_cuda(x, g)
+    again = cuda_ops.conv_dw_cuda(x, g)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (cout, cin, 3, 3)
+    assert torch.equal(got, again)
+    want = cuda_ops.conv_dw_ref(x, g)
+    if W == 1:
+        assert not got[:, :, :, [0, 2]].any()
+    assert _rel(got, want) <= DW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_launchers_take_the_ring_that_fits(device, dtype):
+    """K3's and K6's launchers choose their shared-memory ring: four stages
+    at every r5blend shape, fewer for a wide image (which still matches the
+    plain version), and a raised refusal where no ring fits."""
+    for H, W, cin, cout in DW_SHAPES:
+        p3 = cuda_ops.conv3x3_plan(256, H, W, cin, cout, dtype)
+        p6 = cuda_ops.conv_dw_plan(256, H, W, cin, cout, dtype)
+        assert cuda_ops.conv3x3_ring(p3, W) == 4
+        assert cuda_ops.conv_dw_ring(p6, H, W) == 4
+    # wide enough for a shorter ring: 512 pixels a row in bf16 (the tensor
+    # cores' patch rows are 24 elements), 2,048 in fp32 (4 floats)
+    wide = 512 if dtype == torch.bfloat16 else 2048
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = _randn(gen, 1, 4, wide, 64, dtype=dtype)
+    w = _randn(gen, 64, 64, 3, 3, dtype=dtype, scale=(2 / 576) ** .5)
+    assert 2 <= cuda_ops.conv3x3_ring(
+        cuda_ops.conv3x3_plan(1, 4, wide, 64, 64, dtype), wide) < 4
+    assert _rel(cuda_ops.conv3x3_cuda(x, w),
+                cuda_ops.conv3x3_ref(x, w)) <= CONV_TOL[dtype]
+    g = _randn(gen, 1, 4, wide, 64, dtype=dtype)
+    ring = cuda_ops.conv_dw_ring(
+        cuda_ops.conv_dw_plan(1, 4, wide, 64, 64, dtype), 4, wide)
+    if ring:
+        assert ring < 4
+        assert _rel(cuda_ops.conv_dw_cuda(x, g),
+                    cuda_ops.conv_dw_ref(x, g)) <= DW_TOL[dtype]
+    else:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cuda_ops.conv_dw_cuda(x, g)
+    x = _randn(gen, 1, 2, 4096, 64, dtype=dtype)
+    assert cuda_ops.conv3x3_ring(
+        cuda_ops.conv3x3_plan(1, 2, 4096, 64, 64, dtype), 4096) == 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_ops.conv3x3_cuda(x, w)
 
 
 def _grads(fn, args):

@@ -294,7 +294,8 @@ def _imported_roots(path):
 
 def test_port_sources_import_no_jax():
     files = sorted(PORT_DIR.rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_policy.py"]
+        REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_policy.py",
+        REPO / "tools" / "sweep_conv_plans.py"]
     assert len(files) > 10
     names = {str(f.relative_to(PORT_DIR)) for f in files
              if PORT_DIR in f.parents}
@@ -317,6 +318,14 @@ def test_port_sources_import_no_jax():
     assert cu == sorted(build.SOURCES.values())
     assert {"conv3x3.cu", "gn_act.cu", "conv_dw.cu"} <= set(cu)
     for name in cu:
+        includes = [line for line in (PORT_DIR / "csrc" / name).read_text()
+                    .splitlines() if line.startswith("#include")]
+        assert not [i for i in includes if "torch" in i or "jax" in i
+                    or "ATen" in i], (name, includes)
+    # the shared headers (K3's and K6's conv_tile.cuh) likewise
+    cuh = sorted(p.name for p in (PORT_DIR / "csrc").glob("*.cuh"))
+    assert "conv_tile.cuh" in cuh
+    for name in cuh:
         includes = [line for line in (PORT_DIR / "csrc" / name).read_text()
                     .splitlines() if line.startswith("#include")]
         assert not [i for i in includes if "torch" in i or "jax" in i

@@ -286,14 +286,18 @@ TRAIN_CONVS = [(32, 8, 64, 64)] + [
 
 @pytest.mark.parametrize("H,W,cin,cout", sorted(set(TRAIN_CONVS)))
 def test_conv_dw_plan_covers_the_pixels_and_fills_the_card(H, W, cin, cout):
-    """K6's pixel chunks: whole 16-pixel steps, at least four of them, every
-    pixel in exactly one chunk, none empty, and about two blocks per SM of
-    an H100 (132 SMs) where the pixels allow it (rounding chunks to whole
-    steps may leave a few blocks fewer)."""
+    """K6's pixel chunks in fp32 (the training path's type): whole K steps,
+    at least four of them, every pixel in exactly one chunk, none empty,
+    and about two blocks per SM of an H100 (132 SMs) where the pixels allow
+    it (rounding chunks to whole steps may leave a few blocks fewer); the
+    workspace holds every chunk's partial sums."""
     pixels = 256 * H * W
-    chunks, per = cuda_ops.conv_dw_plan(pixels, cin, cout, 132)
-    assert per % 16 == 0 and per >= 64
+    plan = cuda_ops.conv_dw_plan(256, H, W, cin, cout, torch.float32, 132)
+    chunks, per, step = plan.chunks, plan.chunk_pixels, plan.step
+    assert per % step == 0 and per >= 4 * step
     assert (chunks - 1) * per < pixels <= chunks * per
     tiles = -(-cin // 32) * -(-cout // 64)
-    assert chunks * tiles >= 1.8 * 132 or chunks == -(-pixels // 16) // 4
+    assert plan.tiles == tiles
+    assert chunks * tiles >= 1.8 * 132 or chunks == -(-pixels // step) // 4
+    assert plan.ws_elems == chunks * cout * 9 * cin
     assert len(TRAIN_CONVS) == 31

@@ -21,10 +21,14 @@ the U-Net's conv blocks through the K3-K5 kernels. --conv-bwd sets
 `cuda_ops.CONV_BWD` (SPDM_CONV_BWD): `pallas` computes the conv weight
 gradients with K6.
 It prints the wall time (host clock around work that ends in a
-synchronize, unprofiled and profiled), the device time summed over the
-kernels, the device's idle share of the wall time, the device time by
-kernel category and the kernels that take most of it. TF32 is off, as in
-chip_smoke.py.
+synchronize, unprofiled and profiled), the device's busy time (the union of
+the spans of its events, kernels, copies and sets: kernels chained by
+programmatic dependent launch overlap) beside the same events' summed
+times (this tool's busy time in its earlier versions), the device's idle
+share of the wall time (of the union), the device time by kernel category
+(shares of the summed times) and the kernels that take most of it. A launch count is of device
+kernels: one K3 wrapper call launches 2-3 (repack, conv, split-K sum).
+TF32 is off, as in chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -47,9 +51,9 @@ N_ENVS, TOP = 256, 25
 CATEGORIES = [
     ("K1 attention_core", ("attention_core_kernel",)),
     ("K2 sample_banked", ("sample_banked_kernel",)),
-    ("K3 conv3x3", ("conv3x3_kernel", "conv3x3_mma_kernel")),
+    ("K3 conv3x3", ("conv3x3_",)),
     ("K4 gn_act", ("gn_act_kernel",)),
-    ("K6 conv_dw", ("conv_dw_kernel", "sum_chunks_kernel")),
+    ("K6 conv_dw", ("conv_dw_",)),
     ("conv / gemm", ("conv", "cudnn", "gemm", "xmma", "cutlass", "sm90_",
                      "wgrad", "dgrad", "fprop", "implicit")),
     ("reduction", ("reduce",)),
@@ -160,6 +164,20 @@ def make_work(what: str, amp: bool, dev):
     return f"DDIM-10 denoise, {N_ENVS} envs, {tag}", denoise
 
 
+def merged_ms(spans) -> float:
+    """Milliseconds covered by at least one of the (start, end) spans, in
+    microseconds."""
+    total, lo, hi = 0.0, None, None
+    for start, end in sorted(spans):
+        if hi is None or start > hi:
+            if hi is not None:
+                total += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return (total + (hi - lo if hi is not None else 0.0)) / 1e3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--what", default="denoise",
@@ -210,12 +228,19 @@ def main() -> int:
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
                and device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    kernel_ms = sum(device_us(e) for e in kernels) / 1e3
+    # kernels chained by programmatic dependent launch (K3's) overlap, so
+    # the device's busy time is the union of the same events' spans
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")
+             and e.time_range.end > e.time_range.start]
+    busy_ms = merged_ms(spans) if spans else kernel_ms
     launches = sum(e.count for e in kernels)
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"{what}: wall {wall_plain_ms:.3f}"
           f" ms unprofiled, {wall_ms:.3f} ms profiled; device busy "
-          f"{busy_ms:.3f} ms over {launches} kernel launches; idle share "
+          f"{busy_ms:.3f} ms (kernel times sum to {kernel_ms:.3f} ms) over "
+          f"{launches} kernel launches; idle share "
           f"{1 - busy_ms / wall_plain_ms:.3f} of the unprofiled wall "
           f"({1 - busy_ms / wall_ms:.3f} of the profiled)")
     if not kernels:
@@ -228,7 +253,7 @@ def main() -> int:
         c[1] += e.count
     print("device time by category:")
     for cat, (ms, n) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {cat:22s} {ms:9.3f} ms  {100 * ms / busy_ms:5.1f}%  "
+        print(f"  {cat:22s} {ms:9.3f} ms  {100 * ms / kernel_ms:5.1f}%  "
               f"{n:6d} launches")
     print(f"top {TOP} kernels:")
     for e in sorted(kernels, key=lambda e: -device_us(e))[:TOP]:
