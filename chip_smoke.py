@@ -7,11 +7,19 @@ Phases, each printed with its seconds:
   2. build    nvcc builds every kernel of the port (K1-K4 and K6; K5 is K3
               and K4) into build/, one nvcc per source, all started
               together;
-  3. K1       the attention_core CUDA kernel against its plain PyTorch
-              version at the five attention shapes of one r5blend U-Net
-              forward (B=256, 4 heads) in fp32 and bf16, with its time,
-              the plain version's, F.scaled_dot_product_attention's (timed
-              as a yardstick only) and the least time the card could take;
+  3. K1       the attention_core CUDA kernel (the ptxas line of each of
+              its kernels) against its plain PyTorch version at the five
+              attention shapes of one r5blend U-Net forward (B=256, 4
+              heads) and at the shapes off that path (WIDE_ATTN_SHAPES:
+              width 128, T=384, ragged T, Dh=8) in fp32 and bf16, twice
+              (bit-identical), with its time, the plain version's,
+              F.scaled_dot_product_attention's (timed as a yardstick only)
+              and the least time the card could take (the largest of the
+              bytes, the operations and the exponentials; the earlier
+              two-term bound beside it); then U-Net forwards off r5blend's
+              path (width 128, and a 48x8 input), random init, B=64, fp32
+              and bf16: 5 K1 launches each, K1 held against its plain
+              version on the forward's own activations (K1_REL_TOL);
   K3-K5       the conv path's kernels against their plain versions at every
               shape of one r5blend U-Net forward on the conv-kernel path
               (B=256, fp32 and bf16): conv3x3 (K3) at its 17 conv shapes,
@@ -127,9 +135,20 @@ GOLDEN = os.path.join(HERE, "tests", "fixtures", "golden_frames.npz")
 N_ENVS, N_FRAMES, HEADS = 256, 50, 4
 # (T, C) of the five kernel calls of one U-Net forward at width 64
 ATTN_SHAPES = [(64, 128), (16, 256), (16, 128), (64, 64), (256, 64)]
+# shapes K1 takes off r5blend's path, held against the plain version at
+# B=256: those of a forward at --model_width 128 (its other two, (16, 256)
+# and (64, 128), are r5blend's too); T=384, the top level of a 48x8 input
+# (--pred_horizon 40), at widths 64 and 128; T not a multiple of 16 (Dh =
+# 24 and 8) and Dh = 8 at T = 16
+WIDE_ATTN_SHAPES = [(64, 256), (16, 512), (256, 128), (384, 64), (384, 128),
+                    (20, 96), (200, 32), (16, 32)]
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# exponentials a second: 132 SMs x 16 results a clock (the SFU's rate, CUDA
+# C++ Programming Guide's throughput table, compute capability 9.0) x
+# 1.98 GHz, the clock the 67 TFLOP/s fp32 peak implies (132 x 128 x 2 x f)
+SFU_PER_S = 132 * 16 * 1.98e9
 # K1 against its plain version: fp32 differs only in summation order and
 # expf (~1e-6 at these magnitudes); bf16 may round p or the output one
 # bf16 ulp apart (2**-7 at |x| < 2, 2**-6 below 4)
@@ -266,13 +285,15 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def k1_floor_ms(B, T, C, dtype):
-    """(bytes ms, operations ms) of one K1 call: q, k, v read once and out
-    written once, over the memory rate; 4*T*T*C flops per batch element
-    over the peak rate for the inputs' type."""
+def k1_floor_ms(B, T, C, dtype, heads=HEADS):
+    """(bytes ms, operations ms, exponentials ms) of one K1 call: q, k, v
+    read once and out written once, over the memory rate; 4*T*T*C flops
+    per batch element over the peak rate for the inputs' type; one
+    exponential a score, B*heads*T*T, over the SFU's rate."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
     return (4 * B * T * C * itemsize / HBM_BYTES_PER_S * 1e3,
-            4 * B * T * T * C / PEAK_OPS[dtype] * 1e3)
+            4 * B * T * T * C / PEAK_OPS[dtype] * 1e3,
+            B * heads * T * T / SFU_PER_S * 1e3)
 
 
 def bound(byte_ms, op_ms):
@@ -286,24 +307,32 @@ def conv_taps(W):
     return 3 if W == 1 else 9
 
 
-def check_k1(cuda_ops, device):
-    """Phase 3: K1 alone. Returns per-call records."""
+def check_k1(cuda_ops, device, build):
+    """Phase 3: K1 alone, at B=256: the five shapes of a forward and the
+    shapes off r5blend's path (WIDE_ATTN_SHAPES), fp32 and bf16, each
+    against its plain version, twice (bit-identical), timed beside its
+    plain version and SDPA. Returns (per-call records, ptxas lines)."""
     import torch.nn.functional as F
 
+    ptxas = print_ptxas(build, "attention_core", ("attention_core",))
     gen = torch.Generator(device=device).manual_seed(1234)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
-        for T, C in ATTN_SHAPES:
+        for T, C in ATTN_SHAPES + WIDE_ATTN_SHAPES:
             q, k, v = (torch.randn((N_ENVS, T, C), generator=gen,
                                    device=device).to(dtype)
                        for _ in range(3))
             got = cuda_ops.attention_core_cuda(q, k, v, HEADS)
+            again = cuda_ops.attention_core_cuda(q, k, v, HEADS)
             want = cuda_ops.attention_core_ref(q, k, v, HEADS)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             if not (err <= K1_TOL[dtype]):
                 raise Failed(f"K1 {dtype} T={T} C={C}: max abs err {err} > "
                              f"{K1_TOL[dtype]}")
+            if not torch.equal(got, again):
+                raise Failed(f"K1 {dtype} T={T} C={C}: two runs differ")
+            del want, again
             Dh = C // HEADS
             qh, kh, vh = (t.reshape(N_ENVS, T, HEADS, Dh).transpose(1, 2)
                           .contiguous() for t in (q, k, v))
@@ -313,20 +342,99 @@ def check_k1(cuda_ops, device):
                 lambda: cuda_ops.attention_core_ref(q, k, v, HEADS), 10)
             lib_ms = graph_ms(
                 lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
-            byte_ms, op_ms = k1_floor_ms(N_ENVS, T, C, dtype)
-            bound_ms, bound_by = bound(byte_ms, op_ms)
+            byte_ms, op_ms, exp_ms = k1_floor_ms(N_ENVS, T, C, dtype)
+            bound_ms = max(byte_ms, op_ms, exp_ms)
+            # the exponentials are operations too (on the SFU)
+            term = ("bytes" if bound_ms == byte_ms else "operations"
+                    if bound_ms == op_ms else "exponentials")
             rec = dict(T=T, C=C, dtype=str(dtype).replace("torch.", ""),
                        max_abs_err=err, tol=K1_TOL[dtype], ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms,
-                       byte_ms=byte_ms, op_ms=op_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       byte_ms=byte_ms, op_ms=op_ms, exp_ms=exp_ms,
+                       bound_ms=bound_ms,
+                       bound_by="bytes" if term == "bytes" else "operations",
+                       bound_term=term,
+                       bound_ms_two_term=max(byte_ms, op_ms),
+                       r5blend=(T, C) in ATTN_SHAPES,
+                       plan=cuda_ops.attention_core_plan(N_ENVS, T, HEADS, Dh,
+                                                         dtype))
             records.append(rec)
             print(f"  K1 {rec['dtype']:8s} B={N_ENVS} T={T:3d} C={C:3d}: "
-                  f"err {err:.3e} (tol {K1_TOL[dtype]:.1e})  kernel "
-                  f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-                  f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})",
-                  flush=True)
-    return records
+                  f"err {err:.3e} (tol {K1_TOL[dtype]:.1e}), repeat equal; "
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+                  f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({term}; bytes "
+                  f"{byte_ms:.4f}, operations {op_ms:.4f}, exponentials "
+                  f"{exp_ms:.4f}; two-term {rec['bound_ms_two_term']:.4f})  "
+                  f"plan {rec['plan']}", flush=True)
+    for dtype in ("float32", "bfloat16"):
+        fwd = [r for r in records if r["dtype"] == dtype and r["r5blend"]]
+        print(f"  K1 {dtype} one forward (the five calls): kernel "
+              f"{sum(r['ms'] for r in fwd):.4f} ms, sdpa "
+              f"{sum(r['library_ms'] for r in fwd):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in fwd):.4f} ms (two-term "
+              f"{sum(r['bound_ms_two_term'] for r in fwd):.4f})", flush=True)
+    return records, ptxas
+
+
+def check_k1_unets(cuda_ops, device, seed):
+    """K1 on U-Net forwards off r5blend's path, random init, B=64: width
+    128 on r5blend's 32x8 input, and width 64 on the 48x8 input of a
+    --pred_horizon 40 plan (41 rows, padded). Each forward runs on the
+    kernel path (exactly 5 K1 launches) and on the plain path with K1
+    held against it on the forward's own activations (ShadowAttention,
+    within K1_REL_TOL), in fp32 and in bf16."""
+    from state_policy_diffusionmodel_torch.diffusion import PolicyConfig
+    from state_policy_diffusionmodel_torch.diffusion.policy import \
+        init_module_
+    from state_policy_diffusionmodel_torch.models import build_model
+
+    B, out = 64, {}
+    for tag, width, horizon in (("width 128", 128, 31),
+                                ("48-row input", 64, 41)):
+        cfg = PolicyConfig(model_width=width, pred_horizon=horizon - 1)
+        gen = torch.Generator(device=device).manual_seed(seed + width)
+        unet = init_module_(build_model(
+            cfg.model, cfg.obs_horizon * cfg.observation_dim, out_channels=1,
+            width=width).to(device), gen)
+        x = torch.randn((B, horizon, cfg.prediction_dim, 1), generator=gen,
+                        device=device)
+        cond = torch.randn((B, cfg.obs_horizon * cfg.observation_dim),
+                           generator=gen, device=device)
+        t = torch.randint(0, cfg.noise_steps, (B,), generator=gen,
+                          device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            net = unet if dtype == torch.float32 else \
+                copy.deepcopy(unet).to(dtype)
+            with torch.no_grad():
+                before = cuda_ops.attention_core.launches
+                got = net(x.to(dtype), t, cond.to(dtype))
+                torch.cuda.synchronize()
+                launches = cuda_ops.attention_core.launches - before
+                shadow = ShadowAttention(cuda_ops)
+                with mock.patch.object(cuda_ops, "attention_core", shadow):
+                    want = net(x.to(dtype), t, cond.to(dtype))
+            torch.cuda.synchronize()
+            name = f"{tag} {str(dtype).replace('torch.', '')}"
+            real = shadow.summary()
+            gap = rel_err(got, want)[1].item()
+            out[name] = dict(k1_launches=launches, k1_on_forward=real,
+                             output_gap=gap)
+            print(f"  {name}: K1 launches {launches}; K1 vs plain on the "
+                  f"forward's activations ({real['calls']} calls): "
+                  f"{fmt(real)}; output, kernel path vs plain path: max "
+                  f"err {gap:.3e} of the largest", flush=True)
+            if launches != 5 or real["calls"] != 5:
+                raise Failed(f"{name}: {launches} K1 launches, "
+                             f"{real['calls']} shadowed, expected 5")
+            if not real["max_rel_err"] <= K1_REL_TOL[dtype]:
+                raise Failed(f"{name}: K1 differs from its plain version by "
+                             f"{real['max_rel_err']} of the largest output "
+                             f"> {K1_REL_TOL[dtype]}")
+            if tuple(got.shape) != tuple(x.shape) or \
+                    not torch.isfinite(got).all():
+                raise Failed(f"{name}: output {tuple(got.shape)} or "
+                             "non-finite")
+    return out
 
 
 def conv_calls():
@@ -411,10 +519,12 @@ def ptxas_report(log: str, names=("conv3x3_", "conv_dw_")) -> list[dict]:
     return rows
 
 
-def print_ptxas(build, lib: str) -> list[dict]:
-    """Print (and return) the ptxas line of each kernel of library `lib`;
-    fails where the build's log reports none."""
-    rows = ptxas_report(build.build_all([lib])[lib].log)
+def print_ptxas(build, lib: str,
+                names=("conv3x3_", "conv_dw_")) -> list[dict]:
+    """Print (and return) the ptxas line of each kernel of library `lib`
+    whose name holds one of `names`; fails where the build's log reports
+    none."""
+    rows = ptxas_report(build.build_all([lib])[lib].log, names)
     if not rows:
         raise Failed(f"{lib}: nvcc's log reports no kernel (ptxas -v)")
     for r in rows:
@@ -829,7 +939,8 @@ def per_forward(records, calls, key, dtype="float32"):
     rows = [by_key[c] for c in calls]
     out = {k: sum(r[k] for r in rows)
            for k in ("ms", "plain_ms", "bound_ms", "bound_ms_9taps",
-                     "bound_ms_taps_computed") if k in rows[0]}
+                     "bound_ms_taps_computed", "byte_ms", "op_ms", "exp_ms",
+                     "bound_ms_two_term") if k in rows[0]}
     out["library_ms"] = (None if rows[0]["library_ms"] is None
                          else sum(r["library_ms"] for r in rows))
     side = {b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b)
@@ -1373,7 +1484,9 @@ def main() -> int:
                 print(f"    {line}")
 
     with phase("K1 attention_core vs plain"):
-        k1 = check_k1(cuda_ops, device)
+        k1, k1_ptxas = check_k1(cuda_ops, device, build)
+    with phase("K1 on U-Net forwards off r5blend's path"):
+        k1_unets = check_k1_unets(cuda_ops, device, args.seed)
     with phase("K3 conv3x3 vs plain"):
         k3, k3_ptxas = check_k3(cuda_ops, device, build)
     with phase("K4 gn_act vs plain"):
@@ -1822,7 +1935,7 @@ def main() -> int:
     training = train_phases(args, device, cuda_ops, policy, params, stats,
                             (zero_counts, read_counts))
 
-    fp32 = [r for r in k1 if r["dtype"] == "float32"]
+    fp32 = [r for r in k1 if r["dtype"] == "float32" and r["r5blend"]]
     # the five calls are separate launches: the forward's bound is the sum
     # of each call's own, labelled by the side that sets most of that sum
     fwd_bound_ms = sum(r["bound_ms"] for r in fp32)
@@ -1845,9 +1958,15 @@ def main() -> int:
         "bound_ms": fwd_bound_ms,
         "bound_by": fwd_bound_by,
         "library_ms": sum(r["library_ms"] for r in fp32),
+        # the bound's three terms and the earlier two-term bound, summed
+        **{k: sum(r[k] for r in fp32)
+           for k in ("byte_ms", "op_ms", "exp_ms", "bound_ms_two_term")},
         # the same five calls in bf16 (amp's forward), summed likewise
         "bf16": per_forward(k1, ATTN_SHAPES, lambda r: (r["T"], r["C"]),
                             "bfloat16"),
+        "ptxas": k1_ptxas,
+        # forwards off r5blend's path: width 128, a 48x8 input
+        "unets": k1_unets,
         # the backward is plain torch, as JAX's VJP is plain XLA
         "backward": "plain torch (attention_core_bwd)",
         "backward_ms": k1_bwd_ms,

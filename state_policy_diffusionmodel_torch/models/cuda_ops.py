@@ -6,7 +6,8 @@ Counterpart of `state_policy_diffusionmodel_tpu/models/pallas_ops.py`.
 - `attention_core` (TPU kernel `_attn_pallas`) runs the CUDA kernel in
   `csrc/attention_core.cu` for CUDA tensors with T >= 16 and Dh >= 8, the
   shape rule of the TPU dispatch `_attn_impl`; smaller shapes (the U-Net's
-  4x1 bottleneck) and CPU tensors take `attention_core_ref`.
+  4x1 bottleneck) and CPU tensors take `attention_core_ref`. The kernel
+  takes any T and Dh up to `ATTN_MAX_DH` (128); wider heads raise.
 - The conv path follows the JAX package's selector, read once at import
   into `CONV_PATH`: `SPDM_CONV_PATH` = `xla9` (the default), `xla` or
   `pallas`, and `SPDM_PALLAS_CONV=1` as an alias of `pallas`. On `xla9`
@@ -748,7 +749,7 @@ def attention_core_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).reshape(B, T, C)
 
 
-_SMEM_LIMIT = 48 * 1024   # what a block gets without an opt-in attribute
+ATTN_MAX_DH = 128   # the widest head the kernel takes
 
 
 def _attention_lib() -> ctypes.CDLL:
@@ -756,9 +757,24 @@ def _attention_lib() -> ctypes.CDLL:
     types = {f"attention_core_{d}": [p, p, p, p, i32, i32, i32, i32,
                                      ctypes.c_float, p]
              for d in _KERNEL_DTYPES.values()}
-    types["attention_core_smem_bytes"] = [i32, i32]
-    return _typed_lib("attention_core", types,
-                      {"attention_core_smem_bytes": ctypes.c_size_t})
+    types["attention_core_plan"] = [i32, i32, i32, i32, i32, p]
+    return _typed_lib("attention_core", types)
+
+
+def attention_core_plan(B: int, T: int, num_heads: int, Dh: int,
+                        dtype: torch.dtype) -> dict:
+    """The CUDA launcher's plan for one call, for reports: the padded head
+    width, keys a chunk, (batch, head) pairs a block, streamed or resident,
+    dynamic shared memory in bytes and blocks (needs the built kernel)."""
+    out = (ctypes.c_long * 6)()
+    rc = _attention_lib().attention_core_plan(
+        B, T, num_heads, Dh, torch.tensor([], dtype=dtype).element_size(),
+        ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"attention_core_plan: no plan for T={T}, Dh={Dh}")
+    keys = ("head_width", "chunk", "pairs_a_block", "streamed", "smem",
+            "blocks")
+    return dict(zip(keys, (int(x) for x in out)))
 
 
 def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -782,10 +798,10 @@ def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention_core_cuda: q, k, v must be contiguous")
     Dh = C // num_heads
+    if Dh > ATTN_MAX_DH:
+        raise ValueError(f"attention_core_cuda: Dh={Dh} exceeds the kernel's "
+                         f"limit (Dh <= {ATTN_MAX_DH})")
     lib = _attention_lib()
-    if T > 256 or lib.attention_core_smem_bytes(T, Dh) > _SMEM_LIMIT:
-        raise ValueError(f"attention_core_cuda: T={T}, Dh={Dh} exceeds the "
-                         "kernel's limits (T <= 256, 48 KB shared memory)")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

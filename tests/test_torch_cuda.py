@@ -14,10 +14,15 @@ from state_policy_diffusionmodel_torch.models import cuda_ops
 
 pytestmark = pytest.mark.cuda
 
-# (T, C) of the five attention calls of one r5blend U-Net forward, and two
-# shapes off that grid (T not a power of two; Dh = 8)
-SHAPES = [(64, 128), (16, 256), (16, 128), (64, 64), (256, 64), (20, 96),
-          (200, 32)]
+# (T, C) of the five attention calls of one r5blend U-Net forward; of one
+# forward at --model_width 128; T=384, a 48x8 input's top level (a
+# --pred_horizon 40 plan) at widths 64 and 128; and shapes off that grid
+# (T not a multiple of 16, Dh = 24; Dh = 8; Dh = 20, whose bf16 rows are
+# not whole 16-byte copies; Dh = 9)
+SHAPES = [(64, 128), (16, 256), (16, 128), (64, 64), (256, 64),
+          (64, 256), (16, 512), (16, 256), (64, 128), (256, 128),
+          (384, 64), (384, 128), (20, 96), (200, 32), (16, 32), (32, 80),
+          (48, 36)]
 # fp32: summation order and expf only; bf16: one ulp of p or the output
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 
@@ -40,10 +45,25 @@ def test_attention_kernel_matches_plain(device, T, C, dtype):
                for _ in range(3))
     before = cuda_ops.attention_core.launches
     got = cuda_ops.attention_core(q, k, v, 4)
+    again = cuda_ops.attention_core(q, k, v, 4)
     torch.cuda.synchronize()
-    assert cuda_ops.attention_core.launches == before + 1
+    assert cuda_ops.attention_core.launches == before + 2
     want = cuda_ops.attention_core_ref(q, k, v, 4)
     assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    assert torch.equal(got, again)           # bit-identical on repeat
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_unaligned_inputs_match_plain(device, dtype):
+    """q, k, v that start 2 elements into their storage: not 16-byte
+    aligned, so the kernel copies element by element."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k, v = (torch.randn(2 + 2 * 64 * 128, generator=gen, device=device)
+               .to(dtype)[2:].view(2, 64, 128) for _ in range(3))
+    got = cuda_ops.attention_core_cuda(q, k, v, 4)
+    want = cuda_ops.attention_core_ref(q, k, v, 4)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=TOL[dtype])
 
@@ -63,9 +83,9 @@ def test_attention_kernel_refuses_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(1, 2).contiguous().transpose(1, 2)
         cuda_ops.attention_core_cuda(t, t, t, 4)
-    big = torch.randn((1, 300, 64), device=device)
-    with pytest.raises(ValueError, match="limits"):
-        cuda_ops.attention_core_cuda(big, big, big, 4)
+    wide = torch.randn((1, 16, 4 * 136), device=device)    # Dh = 136
+    with pytest.raises(ValueError, match=r"limit \(Dh <= 128\)"):
+        cuda_ops.attention_core_cuda(wide, wide, wide, 4)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,8 @@ unless a case states otherwise.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,10 @@ ATOL = 1e-5
 
 # (T, C) of the five attention calls of one r5blend U-Net forward (4 heads)
 R5BLEND_ATTN = [(64, 128), (16, 256), (16, 128), (64, 64), (256, 64)]
+# the shapes the card's kernel takes beyond r5blend's: those of a forward
+# at --model_width 128 (its (16, 256) and (64, 128) are r5blend's too), and
+# T=384 (a 48x8 input, --pred_horizon 40) at widths 64 and 128
+WIDE_ATTN = [(64, 256), (16, 512), (256, 128), (384, 64), (384, 128)]
 
 
 @pytest.fixture()
@@ -68,7 +74,7 @@ def _flax_params(module, rng, *args, perturb=0.1, static=()):
 # attention core (K1's plain version)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("T,C", R5BLEND_ATTN)
+@pytest.mark.parametrize("T,C", R5BLEND_ATTN + WIDE_ATTN)
 def test_attention_core_ref_matches_attn_xla(T, C):
     rng = np.random.default_rng(T * 1000 + C)
     q, k, v = (_np(rng, (3, T, C)) for _ in range(3))
@@ -76,15 +82,16 @@ def test_attention_core_ref_matches_attn_xla(T, C):
     _close(cuda_ops.attention_core_ref(_t(q), _t(k), _t(v), 4), want)
 
 
-@pytest.mark.parametrize("T,C", R5BLEND_ATTN)
+@pytest.mark.parametrize("T,C", R5BLEND_ATTN + WIDE_ATTN)
 def test_attention_core_ref_matches_pallas_kernel(interpret, T, C):
     rng = np.random.default_rng(T * 7 + C)
-    q, k, v = (_np(rng, (2, T, C)) for _ in range(3))
+    B = 1 if (T, C) in WIDE_ATTN else 2       # keeps interpret mode quick
+    q, k, v = (_np(rng, (B, T, C)) for _ in range(3))
     want = po._attn_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 4)
     _close(cuda_ops.attention_core_ref(_t(q), _t(k), _t(v), 4), want)
 
 
-@pytest.mark.parametrize("T,C", [(64, 128), (16, 256)])
+@pytest.mark.parametrize("T,C", [(64, 128), (16, 256)] + WIDE_ATTN)
 def test_attention_core_ref_bf16_matches_attn_xla(T, C):
     """bf16 in and out: both round q/sqrt(Dh), p and the output to bf16;
     tolerance is one bf16 ulp at |x| < 4 (2**-6)."""
@@ -111,6 +118,15 @@ def test_attention_core_cuda_refuses_cpu_tensors():
     q = torch.zeros(2, 16, 64)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_ops.attention_core_cuda(q, q, q, 4)
+
+
+def test_attention_core_head_limit_mirrors_the_kernel():
+    """The wrapper's Dh limit is the CUDA launcher's (kMaxDh), which
+    refuses wider heads; the card test checks the raise."""
+    src = (Path(cuda_ops.__file__).parents[1] / "csrc" /
+           "attention_core.cu").read_text()
+    limit = re.search(r"constexpr int kMaxDh = (\d+);", src)
+    assert limit and int(limit.group(1)) == cuda_ops.ATTN_MAX_DH == 128
 
 
 # ---------------------------------------------------------------------------
