@@ -1,25 +1,32 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only k1,k2,k4]
+
+`--only` runs the device and build phases and then the named kernel phases
+alone (K1 with its U-Net forwards, K2 on its four cases, K4), printing
+their records, the card and the last line as below.
 
 Phases, each printed with its seconds:
   1. device   the card (nvidia-smi name and power limit), torch, nvcc;
   2. build    nvcc builds every kernel of the port (K1-K4 and K6; K5 is K3
-              and K4) into build/, one nvcc per source, all started
-              together;
+              and K4), and the previous designs of K2 and K4 that the
+              kernel phases time them against, into build/, one nvcc per
+              source, all started together;
   3. K1       the attention_core CUDA kernel (the ptxas line of each of
-              its kernels) against its plain PyTorch version at the five
-              attention shapes of one r5blend U-Net forward (B=256, 4
-              heads) and at the shapes off that path (WIDE_ATTN_SHAPES:
-              width 128, T=384, ragged T, Dh=8) in fp32 and bf16, twice
+              its kernels; the row kernel must not spill) against its plain
+              PyTorch version at the five attention shapes of one r5blend
+              U-Net forward (B=256, 4 heads) and at the shapes off that path
+              (WIDE_ATTN_SHAPES: width 128, T=384, ragged T, Dh=8, heads of
+              160 and 256 on the row path) in fp32 and bf16, twice
               (bit-identical), with its time, the plain version's,
-              F.scaled_dot_product_attention's (timed as a yardstick only)
-              and the least time the card could take (the largest of the
-              bytes, the operations and the exponentials; the earlier
-              two-term bound beside it); then U-Net forwards off r5blend's
-              path (width 128, and a 48x8 input), random init, B=64, fp32
-              and bf16: 5 K1 launches each, K1 held against its plain
-              version on the forward's own activations (K1_REL_TOL);
+              F.scaled_dot_product_attention's
+              (timed as a yardstick only) and the least time the card could
+              take (the largest of the bytes, the operations and the
+              exponentials; the earlier two-term bound beside it); then
+              U-Net forwards off r5blend's path (widths 128 and 256, and a
+              48x8 input), random init, B=64, fp32 and bf16: 5 K1 launches
+              each, K1 held against its plain version on the forward's own
+              activations (K1_REL_TOL);
   K3-K5       the conv path's kernels against their plain versions at every
               shape of one r5blend U-Net forward on the conv-kernel path
               (B=256, fp32 and bf16): conv3x3 (K3) at its 17 conv shapes,
@@ -28,8 +35,14 @@ Phases, each printed with its seconds:
               the ptxas line (registers, shared memory, spills) of each of
               its kernels;
               gn_act (K4) at its 10 shapes in its four variants (GroupNorm,
-              +GELU, +affine, +affine+residual); double_conv (K5) at the 14
-              distinct shapes of the 15 DoubleConvs;
+              +GELU, +affine, +affine+residual), twice (bit-identical), with
+              its plan, its time, the previous design's (csrc/gn_act_prev.cu,
+              in turns with it, both launched plainly, the median of three
+              readings each; the ratio of the two and the worst ratio of a
+              type printed), F.group_norm's for
+              GroupNorm alone (a
+              yardstick) and the ptxas lines (no spills); double_conv (K5) at
+              the 14 distinct shapes of the 15 DoubleConvs;
   K6          conv_dw, the conv weight gradient, against its plain version
               at the 17 distinct conv shapes of one r5blend training step
               (B=256, fp32 and bf16), twice (bit-identical), with cuDNN's
@@ -37,10 +50,12 @@ Phases, each printed with its seconds:
               as the yardstick, the achieved TFLOP/s, its plan and the
               ptxas lines; and K1's backward (plain torch, as JAX's) timed
               at the five attention shapes;
-  K2, env     the sample_banked CUDA kernel against its plain version at
-              B=1024 on the 16-track bank, on random poses (edges and
-              off-field included) and later on the env's poses after 50
-              steps: every output equal, with its time, the plain
+  K2, env     the sample_banked CUDA kernel (its ptxas lines, no spills)
+              against its plain version at B=1024 and B=256 on the 16-track
+              bank, on random poses (edges and off-field included) and on
+              the env's poses after 50 steps: every output equal, twice,
+              with its plan, its time, the previous design's
+              (csrc/sample_banked_prev.cu, in turns with it), the plain
               version's and the bound; the golden car states rendered on
               the card within 30 bytes a frame of golden_frames.npz; 16
               envs x 40 steps on the card against the CPU (rewards, tiles
@@ -115,6 +130,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -139,9 +155,12 @@ ATTN_SHAPES = [(64, 128), (16, 256), (16, 128), (64, 64), (256, 64)]
 # B=256: those of a forward at --model_width 128 (its other two, (16, 256)
 # and (64, 128), are r5blend's too); T=384, the top level of a 48x8 input
 # (--pred_horizon 40), at widths 64 and 128; T not a multiple of 16 (Dh =
-# 24 and 8) and Dh = 8 at T = 16
+# 24 and 8) and Dh = 8 at T = 16; heads wider than 128 (the row path): Dh =
+# 256 at width 256's (16, 1024) and at a ragged T, Dh = 160 at T = 64 and
+# a ragged T
 WIDE_ATTN_SHAPES = [(64, 256), (16, 512), (256, 128), (384, 64), (384, 128),
-                    (20, 96), (200, 32), (16, 32)]
+                    (20, 96), (200, 32), (16, 32), (16, 1024), (37, 1024),
+                    (64, 640), (20, 640)]
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -315,6 +334,7 @@ def check_k1(cuda_ops, device, build):
     import torch.nn.functional as F
 
     ptxas = print_ptxas(build, "attention_core", ("attention_core",))
+    no_spills(ptxas, "attention_core_kernel_rows", "K1's row kernel")
     gen = torch.Generator(device=device).manual_seed(1234)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -377,8 +397,9 @@ def check_k1(cuda_ops, device, build):
 
 
 def check_k1_unets(cuda_ops, device, seed):
-    """K1 on U-Net forwards off r5blend's path, random init, B=64: width
-    128 on r5blend's 32x8 input, and width 64 on the 48x8 input of a
+    """K1 on U-Net forwards off r5blend's path, random init, B=64: widths
+    128 and 256 (whose (16, 1024) call has heads of 256, the row path) on
+    r5blend's 32x8 input, and width 64 on the 48x8 input of a
     --pred_horizon 40 plan (41 rows, padded). Each forward runs on the
     kernel path (exactly 5 K1 launches) and on the plain path with K1
     held against it on the forward's own activations (ShadowAttention,
@@ -390,6 +411,7 @@ def check_k1_unets(cuda_ops, device, seed):
 
     B, out = 64, {}
     for tag, width, horizon in (("width 128", 128, 31),
+                                ("width 256", 256, 31),
                                 ("48-row input", 64, 41)):
         cfg = PolicyConfig(model_width=width, pred_horizon=horizon - 1)
         gen = torch.Generator(device=device).manual_seed(seed + width)
@@ -535,6 +557,19 @@ def print_ptxas(build, lib: str,
     return rows
 
 
+def no_spills(rows, name, what):
+    """Fail where a kernel of `rows` whose name holds `name` spills
+    registers."""
+    bad = [r for r in rows if name in r["kernel"]
+           and (r.get("spill_stores") or r.get("spill_loads"))]
+    if bad:
+        raise Failed(f"{what} spills registers: {bad}")
+
+
+def fmt_ms(ms):
+    return "-" if ms is None else f"{ms:.4f}"
+
+
 def check_k3(cuda_ops, device, build):
     """K3 alone at the 17 distinct conv shapes of the forward, fp32 and
     bf16: against its plain version, twice (bit-identical), with its time,
@@ -608,26 +643,57 @@ GN_VARIANTS = {"gn": lambda x, g, b, ps, pb, xr: (x, g, b),
                "post_res": lambda x, g, b, ps, pb, xr: (x, g, b, ps, pb, xr)}
 
 
-def check_k4(cuda_ops, device):
+def check_k4(cuda_ops, device, build):
     """K4 alone at the 10 distinct conv-output shapes of the forward, in
-    its four variants, fp32 and bf16: against its plain version, with its
-    time, the plain version's and the bound (bytes: x [and x_res] read
-    once, the output written once). Returns per-case records."""
+    its four variants, fp32 and bf16: against its plain version, twice
+    (bit-identical), with its plan, its time, the previous design's
+    (`csrc/gn_act_prev.cu`, timed in turns with it, the median of three
+    readings each; both launch plainly, so neither overlaps the call before
+    it), the plain version's,
+    F.group_norm's for the `gn` variant (the one PyTorch call computing
+    GroupNorm alone, channels-last; timed as a yardstick only) and the
+    bound (bytes: x [and x_res] read once, the output written once); first
+    the ptxas line of each kernel (no spills). Returns (per-case records,
+    ptxas rows)."""
+    import torch.nn.functional as F
+
+    ptxas = print_ptxas(build, "gn_act", ("gn_act_kernel",))
+    no_spills(ptxas, "gn_act_kernel", "K4")
     gen = torch.Generator(device=device).manual_seed(8765)
     records = []
     shapes = dict.fromkeys((H, W, C) for H, W, C, _ in gn_calls())
     for dtype in (torch.float32, torch.bfloat16):
         for H, W, C in shapes:
             inputs = gn_inputs(N_ENVS, H, W, C, dtype, gen, device)
+            plan = cuda_ops.gn_act_plan(N_ENVS, H * W, C, dtype)
             for variant, pick in GN_VARIANTS.items():
                 a = pick(*inputs)
                 key = f"{H}x{W}x{C} {variant}"
-                rec = check_kernel("K4", records, key,
-                                   cuda_ops.gn_act_cuda(*a),
+                got = cuda_ops.gn_act_cuda(*a)
+                again = cuda_ops.gn_act_cuda(*a)
+                rec = check_kernel("K4", records, key, got,
                                    cuda_ops.gn_act_ref(*a), CONV_TOL, dtype,
                                    H=H, W=W, C=C, variant=variant)
-                timed(rec, lambda: cuda_ops.gn_act_cuda(*a),
-                      lambda: cuda_ops.gn_act_ref(*a))
+                if not torch.equal(got, again):
+                    raise Failed(f"K4 {dtype} {key}: two runs differ")
+                rec["plan"] = dataclasses.asdict(plan)
+                out = torch.empty_like(a[0])
+                x_nchw = a[0].permute(0, 3, 1, 2)
+                kernel = lambda: cuda_ops.gn_act_cuda(*a)
+                prev = lambda: cuda_ops._gn_act_launch(out, None, *a)
+                # in turns (kernel, previous, previous, kernel, kernel,
+                # previous), the median of each side's three: 100 calls a
+                # graph, since the small calls take 3-4 us and a reading
+                # now and then runs long
+                t = [graph_ms(f, 100) for f in (kernel, prev, prev, kernel,
+                                                kernel, prev)]
+                rec["ms"] = sorted(t[i] for i in (0, 3, 4))[1]
+                rec["prev_ms"] = sorted(t[i] for i in (1, 2, 5))[1]
+                rec["plain_ms"] = graph_ms(
+                    lambda: cuda_ops.gn_act_ref(*a), 20)
+                rec["library_ms"] = (graph_ms(lambda: F.group_norm(
+                    x_nchw, 1, a[1], a[2], eps=cuda_ops.GN_EPS), 20)
+                    if variant == "gn" else None)
                 n = N_ENVS * H * W * C
                 n_bytes = ((2 + (variant == "post_res")) * n + 2 * C
                            + 2 * N_ENVS * C * (variant.startswith("post"))
@@ -636,11 +702,26 @@ def check_k4(cuda_ops, device):
                     n_bytes / HBM_BYTES_PER_S * 1e3,
                     10 * n / PEAK_OPS[torch.float32] * 1e3)
                 print(f"  K4 {rec['dtype']:8s} {key:18s}: rel err "
-                      f"{rec['max_rel_err']:.2e}  kernel {rec['ms']:.4f} ms  "
-                      f"plain {rec['plain_ms']:.4f}  bound "
-                      f"{rec['bound_ms']:.4f} ({rec['bound_by']})",
-                      flush=True)
-    return records
+                      f"{rec['max_rel_err']:.2e}, repeat equal  kernel "
+                      f"{rec['ms']:.4f} ms  previous {rec['prev_ms']:.4f} "
+                      f"({rec['ms'] / rec['prev_ms']:.3f}x)  "
+                      f"plain {rec['plain_ms']:.4f}  group_norm "
+                      f"{fmt_ms(rec['library_ms'])}  bound "
+                      f"{rec['bound_ms']:.4f} ({rec['bound_by']})  plan "
+                      f"{plan}", flush=True)
+    for dtype in ("float32", "bfloat16"):
+        fwd = per_forward(records, gn_calls(),
+                          lambda r: (r["H"], r["W"], r["C"], r["variant"]),
+                          dtype)
+        worst = max((r for r in records if r["dtype"] == dtype),
+                    key=lambda r: r["ms"] / r["prev_ms"])
+        print(f"  K4 {dtype} one forward (30 calls): kernel "
+              f"{fwd['ms']:.4f} ms, previous {fwd['prev_ms']:.4f} ms, bound "
+              f"{fwd['bound_ms']:.4f} ms; worst shape against the previous "
+              f"design {worst['H']}x{worst['W']}x{worst['C']} "
+              f"{worst['variant']} {worst['ms'] / worst['prev_ms']:.3f}x",
+              flush=True)
+    return records, ptxas
 
 
 def dc_inputs(H, W, cin, cout, dtype, gen, device):
@@ -847,16 +928,26 @@ def k2_bound(tex, ids, c, s, pos, rx, ry):
     return ms, side, texels, n_bytes
 
 
-def check_k2(cases):
+def check_k2(cases, build=None):
     """K2 against its plain version on each named case of inputs: every
-    int32 output equal, with its time, the plain version's and the bound.
-    Returns per-case records."""
+    int32 output equal, twice (bit-identical), with its grid, its time, the
+    previous design's (`csrc/sample_banked_prev.cu`, timed in turns with
+    it), the plain version's and the bound; given `build`, first the ptxas
+    line of each kernel (no spills). Returns (per-case records, ptxas
+    rows)."""
+    from state_policy_diffusionmodel_torch.models.cuda_ops import _n_sm
     from state_policy_diffusionmodel_torch.render import cuda_sampler as ks
 
+    ptxas = []
+    if build is not None:
+        ptxas = print_ptxas(build, "sample_banked", ("sample_banked",))
+        no_spills(ptxas, "sample_banked", "K2")
+    names = ("tex_bank", "track_ids", "cos_a", "sin_a", "pos", "rx", "ry")
     records = []
     for name, args in cases:
         before = ks.sample_banked.launches
         got = ks.sample_banked_cuda(*args)
+        again = ks.sample_banked_cuda(*args)
         want = ks.sample_banked_ref(*args)
         torch.cuda.synchronize()
         mismatches = int((got != want).sum())
@@ -864,23 +955,62 @@ def check_k2(cases):
         if mismatches:
             raise Failed(f"K2 {name}: {mismatches} outputs differ from the "
                          "plain version")
-        ms = graph_ms(lambda: ks.sample_banked_cuda(*args), 50)
+        if not torch.equal(got, again):
+            raise Failed(f"K2 {name}: two runs differ")
+        by_name = dict(zip(names, args))
+        kernel = lambda: ks.sample_banked_cuda(*args)
+        prev = lambda: ks._sample_banked_launch(by_name, None)
+        k1, p1, p2, k2 = (graph_ms(f, 50) for f in (kernel, prev, prev,
+                                                    kernel))
         plain_ms = graph_ms(lambda: ks.sample_banked_ref(*args), 10)
         bound_ms, side, texels, n_bytes = k2_bound(*args)
-        # the check, 3 warm-up calls and 50 captured in the timing graph
+        # the check (twice), 3 warm-up calls and 50 captured in each of the
+        # two timing graphs
         launches = ks.sample_banked.launches - before
-        rec = dict(case=name, B=int(args[1].shape[0]), launches=launches,
-                   mismatches=mismatches,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        B = int(args[1].shape[0])
+        groups = ks.sample_banked_plan(B, _n_sm(args[0].device))
+        rec = dict(case=name, B=B, launches=launches,
+                   mismatches=mismatches, max_abs_err=err, ms=(k1 + k2) / 2,
+                   prev_ms=(p1 + p2) / 2, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=side, texels=texels,
-                   bytes=n_bytes, in_field=float((want > 0).float().mean()))
+                   bytes=n_bytes, in_field=float((want > 0).float().mean()),
+                   grid=groups * ks.STRIPS)
         records.append(rec)
-        print(f"  K2 {name}: B={rec['B']}, 0 of {got.numel()} outputs differ"
-              f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        print(f"  K2 {name}: B={B}, 0 of {got.numel()} outputs differ, "
+              f"repeat equal; kernel {rec['ms']:.4f} ms, previous "
+              f"{rec['prev_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({side}: {n_bytes / 1e6:.1f} MB, "
-              f"{texels} distinct texels); {launches} launches in this "
-              "check", flush=True)
-    return records
+              f"{texels} distinct texels); grid {rec['grid']} CTAs; {launches} "
+              "launches "
+              "in this check", flush=True)
+    return records, ptxas
+
+
+def k2_cases(seed, device):
+    """K2's named cases on the 16-track bank: random poses (edges and off
+    the field included) and the env's own poses after 50 steps of seeded
+    actions, each at the env bench's 1,024 envs and the closed loop's
+    256."""
+    from state_policy_diffusionmodel_torch.envs import vector
+    from state_policy_diffusionmodel_torch.render import raster
+    from state_policy_diffusionmodel_torch.track import load_or_build_bank
+
+    bank = load_or_build_bank(ENV_TRACKS, bake=True, device=device)
+    _, _, rx, ry = raster.pixel_planes(device)
+    ids = torch.arange(ENV_B, dtype=torch.int32, device=device) % ENV_TRACKS
+    st = vector.init_batch(bank, ids, device=device)
+    st, _ = vector.rollout_constant(
+        st, bank, env_actions(1, ENV_B, seed)[0].to(device), 50,
+        render=False, track_ids=ids, device=device)
+    cases = []
+    for name, scal in (("random poses", random_poses(ENV_B, device, seed)),
+                       ("env poses after 50 steps",
+                        raster.camera_scalars(st.car))):
+        for B in (ENV_B, N_ENVS):
+            cut = tuple(t[:B].contiguous() for t in (ids, *scal))
+            cases.append((name if B == ENV_B else f"{name}, closed-loop batch",
+                          (bank.tex, *cut, rx, ry)))
+    return cases
 
 
 def random_poses(B, device, seed):
@@ -938,7 +1068,7 @@ def per_forward(records, calls, key, dtype="float32"):
     by_key = {key(r): r for r in records if r["dtype"] == dtype}
     rows = [by_key[c] for c in calls]
     out = {k: sum(r[k] for r in rows)
-           for k in ("ms", "plain_ms", "bound_ms", "bound_ms_9taps",
+           for k in ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_ms_9taps",
                      "bound_ms_taps_computed", "byte_ms", "op_ms", "exp_ms",
                      "bound_ms_two_term") if k in rows[0]}
     out["library_ms"] = (None if rows[0]["library_ms"] is None
@@ -980,7 +1110,7 @@ def conv_kernel_entries(k3, k4, k5, runs, loop):
             "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
             "library_ms": fwd["library_ms"], "bf16": fwd_bf16,
             "per_shape": recs})
-        for b in ("bound_ms_9taps", "bound_ms_taps_computed"):
+        for b in ("bound_ms_9taps", "bound_ms_taps_computed", "prev_ms"):
             if b in fwd:
                 entries[-1][b] = fwd[b]
     entries[-1]["sources"] = [csrc + "conv3x3.cu", csrc + "gn_act.cu"]
@@ -1430,6 +1560,9 @@ def train_phases(args, device, cuda_ops, policy, params, stats, counts):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated kernel phases to run alone after "
+                         "the build (k1, k2, k4), for iterating on a kernel")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1483,14 +1616,35 @@ def main() -> int:
             for line in b.log.strip().splitlines():
                 print(f"    {line}")
 
-    with phase("K1 attention_core vs plain"):
-        k1, k1_ptxas = check_k1(cuda_ops, device, build)
-    with phase("K1 on U-Net forwards off r5blend's path"):
-        k1_unets = check_k1_unets(cuda_ops, device, args.seed)
-    with phase("K3 conv3x3 vs plain"):
-        k3, k3_ptxas = check_k3(cuda_ops, device, build)
-    with phase("K4 gn_act vs plain"):
-        k4 = check_k4(cuda_ops, device)
+    only = set(args.only.split(",")) if args.only else None
+    if only is not None and not only <= {"k1", "k2", "k4"}:
+        raise Failed(f"--only takes k1, k2 and k4, got {args.only}")
+    want = lambda k: only is None or k in only
+    k1 = k1_ptxas = k1_unets = k4 = k4_ptxas = None
+    if want("k1"):
+        with phase("K1 attention_core vs plain"):
+            k1, k1_ptxas = check_k1(cuda_ops, device, build)
+        with phase("K1 on U-Net forwards off r5blend's path"):
+            k1_unets = check_k1_unets(cuda_ops, device, args.seed)
+    if only is None:
+        with phase("K3 conv3x3 vs plain"):
+            k3, k3_ptxas = check_k3(cuda_ops, device, build)
+    if want("k4"):
+        with phase("K4 gn_act vs plain"):
+            k4, k4_ptxas = check_k4(cuda_ops, device, build)
+    if only is not None:
+        if want("k2"):
+            with phase("K2 sample_banked vs plain"):
+                k2, k2_ptxas = check_k2(k2_cases(args.seed, device), build)
+        print(json.dumps({"k1": k1, "k1_ptxas": k1_ptxas,
+                          "k1_unets": k1_unets, "k4": k4,
+                          "k4_ptxas": k4_ptxas,
+                          "k2": k2 if want("k2") else None}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     with phase("K5 double_conv vs plain"):
         k5 = check_k5(cuda_ops, device)
     with phase("K6 conv_dw vs plain"):
@@ -1499,14 +1653,9 @@ def main() -> int:
         print(f"  K1's backward (plain torch, as JAX), the five calls of a "
               f"training step at B={N_ENVS}, fp32: {k1_bwd_ms:.4f} ms")
 
-    env_bank = load_or_build_bank(ENV_TRACKS, bake=True, device=device)
-    _, _, rx, ry = raster.pixel_planes(device)
-    env_ids = torch.arange(ENV_B, dtype=torch.int32,
-                           device=device) % ENV_TRACKS
     with phase("K2 sample_banked vs plain, random poses"):
-        k2 = check_k2([("random poses", (
-            env_bank.tex, env_ids, *random_poses(ENV_B, device, args.seed),
-            rx, ry))])
+        cases = k2_cases(args.seed, device)
+        k2, k2_ptxas = check_k2(cases[:2], build)
 
     with phase("golden frames on the card"):
         cars = physics.load_pickled_states(GOLDEN_STATES, device)
@@ -1581,17 +1730,7 @@ def main() -> int:
                 raise Failed(f"{mode}: {k2_n} K2 launches, expected {want}")
 
     with phase("K2 sample_banked vs plain, env poses"):
-        st = vector.init_batch(env_bank, env_ids, device=device)
-        st, _ = vector.rollout_constant(
-            st, env_bank, env_actions(1, ENV_B, args.seed)[0].to(device), 50,
-            render=False, track_ids=env_ids, device=device)
-        scal = raster.camera_scalars(st.car)
-        k2 += check_k2([
-            ("env poses after 50 steps", (env_bank.tex, env_ids, *scal,
-                                          rx, ry)),
-            ("env poses after 50 steps, closed-loop batch", (
-                env_bank.tex, env_ids[:256].contiguous(),
-                *(t[:256].contiguous() for t in scal), rx, ry))])
+        k2 += check_k2(cases[2:])[0]
 
     with phase("policy load"):
         policy, params, stats = load_run(RUN_DIR, device)
@@ -1985,14 +2124,17 @@ def main() -> int:
         "launches_env_render": envs_run["env_render"]["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2_main["ms"],
+        "prev_ms": k2_main["prev_ms"],
         "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"],
         "bound_by": k2_main["bound_by"],
         "library_ms": None,
+        "ptxas": k2_ptxas,
         "per_case": k2,
     })
     kernels += conv_kernel_entries(k3, k4, k5, runs, loop)
     next(k for k in kernels if k["name"] == "conv3x3")["ptxas"] = k3_ptxas
+    next(k for k in kernels if k["name"] == "gn_act")["ptxas"] = k4_ptxas
     dw_key = lambda r: (r["H"], r["W"], r["Cin"], r["Cout"])
     step = per_forward(k6, TRAIN_CONVS, dw_key)
     step_bf16 = per_forward(k6, TRAIN_CONVS, dw_key, "bfloat16")

@@ -38,7 +38,17 @@
 //     rows x 4-16 features of the output.
 // Where a block's pairs do not fit in 96 KB of shared memory (long T, wide
 // fp32 heads) it streams: one pair, four query tiles, K (pass 1) and K and
-// V (pass 2) copied 64 keys at a time. Dh is at most 128.
+// V (pass 2) copied 64 keys at a time.
+//
+// Heads wider than 128 (a UNetFiLM at --model_width 256 has one, Dh = 256)
+// take a plain row kernel instead (attention_core_kernel_rows): one warp a
+// (batch, head, query row), four a block. The warp scales its q row in q's
+// dtype into shared memory, forms the row's T scores in f32 (the lanes
+// streaming each key over Dh, then summing across the warp) into shared
+// memory, takes the exact softmax there (max,
+// expf, sum, p = e / sum rounded to v's dtype) and sums p v with the lanes
+// across Dh. Shared memory bounds it: four rows of Dh + T floats, so
+// Dh + T <= kMaxSmem / 16 (14,528).
 //
 // Numerics follow the reference formulation (pallas_ops._attn_xla,
 // cuda_ops.attention_core_ref): q is divided by sqrt(Dh) in q's dtype, the
@@ -77,7 +87,8 @@ using conv_tile::to_f32;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16;               // query rows of a warp tile
-constexpr int kMaxDh = 128;
+constexpr int kMaxDh = 128;             // wider heads take the row kernel
+constexpr int kRowWarps = 4;            // row kernel: query rows a block
 constexpr int kStreamKC = 64;           // keys a chunk when streaming
 constexpr long kResidentSmem = 96 * 1024;
 constexpr int kPC = 64;                 // fp32: keys of P in a warp's tile
@@ -721,10 +732,105 @@ int launch_plan(const Plan& p, const void* q, const void* k, const void* v, void
   return (int)cudaGetLastError();
 }
 
+// ---- heads wider than kMaxDh: one warp a query row ------------------------
+
+__host__ __device__ constexpr long rows_smem(int T_len, int Dh) {
+  return (long)kRowWarps * (Dh + T_len) * 4;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowWarps * 32)
+attention_core_kernel_rows(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ out, long rows, int T_len,
+                           int H, int Dh, float sqrt_dh) {
+  extern __shared__ __align__(16) float row_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long r = (long)blockIdx.x * kRowWarps + warp;
+  if (r >= rows) return;
+  const long pair = r / T_len;
+  const int t = (int)(r - pair * T_len), C = H * Dh;
+  const long base = (pair / H) * T_len * C + (pair % H) * Dh;
+  float* qs = row_smem + warp * (Dh + T_len);
+  float* sc = qs + Dh;
+
+  const float rcp = 1.f / sqrt_dh;
+  for (int d = lane; d < Dh; d += 32)
+    qs[d] = to_f32(from_f32<T>(div_rn(to_f32(q[base + (long)t * C + d]), sqrt_dh, rcp)));
+  __syncwarp();
+  // scores, four keys at a time: the lanes stream q . k over Dh (reads of
+  // consecutive features), then each key's partials are summed across the
+  // warp (every lane ends with the same sum)
+  float mx = -CUDART_INF_F;
+  for (int j0 = 0; j0 < T_len; j0 += 4) {
+    const int nk = min(4, T_len - j0);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d = lane; d < Dh; d += 32) {
+      const float qd = qs[d];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (u < nk) acc[u] = fmaf(qd, to_f32(k[base + (long)(j0 + u) * C + d]), acc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
+      if (u < nk) {
+        if (lane == 0) sc[j0 + u] = acc[u];
+        mx = fmaxf(mx, acc[u]);
+      }
+    }
+  }
+  __syncwarp();
+  float sum = 0.f;
+  for (int j = lane; j < T_len; j += 32) {
+    const float e = expf(sc[j] - mx);
+    sc[j] = e;
+    sum += e;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  for (int j = lane; j < T_len; j += 32) sc[j] = to_f32(from_f32<T>(__fdiv_rn(sc[j], sum)));
+  __syncwarp();
+  constexpr int U = 8;   // output features a lane sums at once, 32 apart
+  for (int d0 = 0; d0 < Dh; d0 += 32 * U) {
+    float acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = 0.f;
+    for (int j = 0; j < T_len; ++j) {
+      const float p = sc[j];
+      const T* vr = v + base + (long)j * C + d0 + lane;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (d0 + lane + 32 * u < Dh) acc[u] = fmaf(p, to_f32(vr[32 * u]), acc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (d0 + lane + 32 * u < Dh)
+        out[base + (long)t * C + d0 + lane + 32 * u] = from_f32<T>(acc[u]);
+  }
+}
+
+template <typename T>
+int launch_rows(const void* q, const void* k, const void* v, void* out, long rows, int T_len,
+                int H, int Dh, float sqrt_dh, cudaStream_t stream) {
+  const long smem = rows_smem(T_len, Dh), blocks = (rows + kRowWarps - 1) / kRowWarps;
+  if (smem > conv_tile::kMaxSmem || blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  auto kernel = attention_core_kernel_rows<T>;
+  static long allowed = 48 * 1024;
+  cudaError_t err = conv_tile::allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kRowWarps * 32, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, rows, T_len, H, Dh, sqrt_dh);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int T_len, int H,
            int Dh, float sqrt_dh, void* stream) {
-  if (B <= 0 || T_len <= 0 || H <= 0 || Dh <= 0 || Dh > kMaxDh) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T_len <= 0 || H <= 0 || Dh <= 0) return (int)cudaErrorInvalidValue;
+  if (Dh > kMaxDh)
+    return launch_rows<T>(q, k, v, out, (long)B * H * T_len, T_len, H, Dh, sqrt_dh,
+                          (cudaStream_t)stream);
   const long pairs = (long)B * H;
   Plan p = make_plan(pairs, T_len, Dh, (int)sizeof(T));
   const auto aligned = [](const void* ptr) { return ((uintptr_t)ptr & 15) == 0; };
@@ -749,16 +855,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int T_
 
 extern "C" {
 
-// The plan of one call, for reports: padded head width, keys a chunk,
-// pairs a block, streamed (1) or resident (0), dynamic shared memory in
-// bytes, blocks. Returns 0, or cudaErrorInvalidValue where the kernel does
-// not take the shape (Dh > 128).
-int attention_core_plan(int B, int T_len, int H, int Dh, int esize, long* plan6) {
-  if (B <= 0 || T_len <= 0 || H <= 0 || Dh <= 0 || Dh > kMaxDh || (esize != 2 && esize != 4))
+// The plan of one call, for reports: path (0 tiles, 1 rows: Dh > 128),
+// padded head width, keys a chunk, (batch, head) pairs a block (rows a
+// block on the row path), streamed (1) or resident (0), dynamic shared
+// memory in bytes, blocks. Returns 0, or cudaErrorInvalidValue where the
+// kernel does not take the shape (the row path past its shared memory).
+int attention_core_plan(int B, int T_len, int H, int Dh, int esize, long* plan7) {
+  if (B <= 0 || T_len <= 0 || H <= 0 || Dh <= 0 || (esize != 2 && esize != 4))
     return (int)cudaErrorInvalidValue;
+  if (Dh > kMaxDh) {
+    const long smem = rows_smem(T_len, Dh);
+    if (smem > conv_tile::kMaxSmem) return (int)cudaErrorInvalidValue;
+    const long rows = (long)B * H * T_len;
+    const long v[7] = {1, Dh, 0, kRowWarps, 0, smem, (rows + kRowWarps - 1) / kRowWarps};
+    for (int i = 0; i < 7; ++i) plan7[i] = v[i];
+    return 0;
+  }
   const Plan p = make_plan((long)B * H, T_len, Dh, esize);
-  const long v[6] = {p.dp, p.kc, p.groups, p.streamed, p.smem, p.blocks};
-  for (int i = 0; i < 6; ++i) plan6[i] = v[i];
+  const long v[7] = {0, p.dp, p.kc, p.groups, p.streamed, p.smem, p.blocks};
+  for (int i = 0; i < 7; ++i) plan7[i] = v[i];
   return 0;
 }
 

@@ -7,7 +7,9 @@ Counterpart of `state_policy_diffusionmodel_tpu/models/pallas_ops.py`.
   `csrc/attention_core.cu` for CUDA tensors with T >= 16 and Dh >= 8, the
   shape rule of the TPU dispatch `_attn_impl`; smaller shapes (the U-Net's
   4x1 bottleneck) and CPU tensors take `attention_core_ref`. The kernel
-  takes any T and Dh up to `ATTN_MAX_DH` (128); wider heads raise.
+  takes any T and Dh: heads up to `ATTN_TILE_MAX_DH` (128) on its tiles,
+  wider ones on its row path, which holds a row's scores in shared memory
+  (Dh + T <= `ATTN_ROWS_MAX`; past that it raises).
 - The conv path follows the JAX package's selector, read once at import
   into `CONV_PATH`: `SPDM_CONV_PATH` = `xla9` (the default), `xla` or
   `pallas`, and `SPDM_PALLAS_CONV=1` as an alias of `pallas`. On `xla9`
@@ -24,10 +26,11 @@ Counterpart of `state_policy_diffusionmodel_tpu/models/pallas_ops.py`.
   (`conv_dw_cuda`, `csrc/conv_dw.cu`; plain version `conv_dw_ref`) for
   CUDA tensors with min(Cin, Cout) >= 8 and B*H*W >= 1024 (`select_conv`
   -> `conv3x3_t`, the counterparts of `_select_conv` and `_conv3x3_t`).
-- K3 and K6 launch per-shape plans computed here (`conv3x3_plan`,
-  `conv_dw_plan`: tile, split-K parts or pixel chunks), passed to the C
-  launchers as integers; each launcher picks its shared-memory ring itself
-  (`conv3x3_ring`, `conv_dw_ring` report the depth).
+- K3, K4 and K6 launch per-shape plans computed here (`conv3x3_plan`,
+  `gn_act_plan`, `conv_dw_plan`: tile, split-K parts or pixel chunks; the
+  threads, packs and passes of a batch element), passed to the C launchers
+  as integers; K3's and K6's launchers pick their shared-memory ring
+  themselves (`conv3x3_ring`, `conv_dw_ring` report the depth).
 
 Gradients. A kernel writes into a fresh tensor through ctypes, so its
 result has no autograd history. Every kernel on a differentiable path runs
@@ -601,11 +604,99 @@ def gn_act_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y.to(x.dtype).reshape(B, H, W, C)
 
 
-def _gn_lib() -> ctypes.CDLL:
+@dataclasses.dataclass(frozen=True)
+class GnPlan:
+    """K4's launch plan for one shape (`csrc/gn_act.cu`).
+
+    A batch element's n = HW*C values are `pack`-value loads (16 bytes: 4
+    fp32 or 8 bf16; 8 bytes: 4 bf16; or one value), owned by a team of
+    `team` threads: pack (it * nv + k) * team + t is thread t's k-th of
+    pass `it`, for `iters` passes of `nv` packs (one pass: the slice is
+    read once). A CTA runs `per_cta` teams, one batch element each; `grid`
+    CTAs."""
+    pack: int
+    nv: int
+    iters: int
+    team: int
+    per_cta: int
+    grid: int
+
+    @property
+    def vec(self) -> bool:
+        """Loads wider than one value."""
+        return self.pack > 1
+
+    @property
+    def threads(self) -> int:
+        return self.team * self.per_cta
+
+
+_GN_MAX_THREADS = 256      # a CTA (the kernel's launch bound)
+# values a thread holds a pass, at most (one-value packs: 8), by
+# kernels/ab.py on an H100 (PERF.md section 6)
+_GN_VALUES = 16
+_GN_MIN_THREADS = 128      # small slices: teams packed to this many threads
+
+
+@functools.lru_cache(maxsize=None)
+def gn_act_plan(B: int, HW: int, C: int, dtype: torch.dtype,
+                aligned: bool = True) -> GnPlan:
+    """K4's plan for x (B, H, W, C) with HW = H*W: the packs of
+    `_gn_pack`, one team of up to 256 threads a batch element: as many
+    threads as the slice has packs, then up to 16 values a thread a pass,
+    then passes; teams smaller than 128 threads packed into one CTA.
+    Cached: the wrapper asks on every call."""
+    pack = _gn_pack(HW, C, torch.tensor([], dtype=dtype).element_size(),
+                    aligned)
+    nv = min(8, _GN_VALUES // pack, -(-(HW * C // pack) // _GN_MAX_THREADS))
+    return _gn_act_plan_for(B, HW, C, pack, nv)
+
+
+def _gn_pack(HW: int, C: int, esize: int, aligned: bool) -> int:
+    """Values a load: 16 bytes where x (x_res, out) are aligned, C is a
+    multiple of a pack and a team whose thread count keeps each thread's
+    channels fixed (a multiple of 32 and of C / pack) fits a CTA; 8 bytes
+    for a bf16 slice of fewer than 256 16-byte packs, so that it has 256
+    threads of 4 values, as fp32 has (kernels/ab.py `wide_packs`); else one
+    value."""
+    fits = lambda pack: aligned and C % pack == 0 and \
+        math.lcm(32, C // pack) <= _GN_MAX_THREADS
+    wide = 16 // esize
+    if not fits(wide):
+        return 1
+    if wide == 8 and HW * C // wide < _GN_MAX_THREADS and fits(4):
+        return 4
+    return wide
+
+
+def _gn_act_plan_for(B: int, HW: int, C: int, pack: int,
+                     nv: int) -> GnPlan:
+    """The plan on `pack`-value loads holding at most `nv` packs a thread
+    a pass (a power of two up to 8) on teams of at most 256 threads, with
+    teams smaller than `_GN_MIN_THREADS` packed into one CTA. A team's
+    thread count is a multiple of 32 and, with packs wider than a value,
+    of C / pack as well. `gn_act_plan` makes its choice through this;
+    kernels/ab.py times others."""
+    unit = math.lcm(32, C // pack) if pack > 1 else 32
+    packs = HW * C // pack
+    cdiv = lambda a, b: -(-a // b)
+    team = min(cdiv(cdiv(packs, nv), unit), _GN_MAX_THREADS // unit) * unit
+    iters = cdiv(packs, team * nv)
+    held = cdiv(packs, team * iters)
+    nv = 1 << max(0, held - 1).bit_length()     # the power of two >= held
+    per_cta = max(1, _GN_MIN_THREADS // team)
+    return GnPlan(pack=pack, nv=nv, iters=iters, team=team, per_cta=per_cta,
+                  grid=cdiv(B, per_cta))
+
+
+def _gn_lib(name: str = "gn_act") -> ctypes.CDLL:
+    """The K4 library `name`: the kernel (its plan's five integers after B,
+    HW, C and gelu) or `gn_act_prev` (no plan)."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    return _typed_lib("gn_act", {
-        f"gn_act_{d}": [p, p, p, p, i64, p, i64, p, p, i32, i32, i32, i32, p]
-        for d in _KERNEL_DTYPES.values()})
+    plan = [i32] * 5 if name == "gn_act" else []
+    return _typed_lib(name, {
+        f"gn_act_{d}": [p, p, p, p, i64, p, i64, p, p] + [i32] * 4 + plan
+        + [p] for d in _KERNEL_DTYPES.values()})
 
 
 def gn_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -616,8 +707,9 @@ def gn_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """Launch K4 on x's device and current stream. x and x_res (B, H, W, C)
     and gamma, beta (C,) contiguous; ps and pb (B, C), both or neither, with
     unit channel stride (a row stride is taken as it is). One dtype, float32
-    or bfloat16. Raises on anything else, on a refused launch and, with
-    grad mode on, on an input that requires grad."""
+    or bfloat16. The plan is `gn_act_plan`'s. Raises on anything else, on a
+    refused launch and, with grad mode on, on an input that requires
+    grad."""
     _refuse_grad("gn_act_cuda", (x, gamma, beta, ps, pb, x_res))
     if (ps is None) != (pb is None):
         raise ValueError("gn_act_cuda: ps and pb go together")
@@ -637,16 +729,31 @@ def gn_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             f"{[tuple(t.shape) for t in post]} (unit channel stride), x_res "
             f"{None if x_res is None else tuple(x_res.shape)}")
     out = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x, out, x_res) if t is not None)
+    plan = gn_act_plan(B, H * W, C, x.dtype, aligned)
+    _gn_act_launch(out, plan, x, gamma, beta, ps, pb, x_res, gelu)
+    gn_act_cuda.launches += 1
+    return out
+
+
+def _gn_act_launch(out, plan: Optional[GnPlan], x, gamma, beta, ps=None,
+                   pb=None, x_res=None, gelu=False) -> None:
+    """K4 under `plan` into `out`, on inputs `gn_act_cuda` has checked; with
+    no plan, the previous design (`csrc/gn_act_prev.cu`)."""
+    B, H, W, C = x.shape
     ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _gn_lib("gn_act_prev" if plan is None else "gn_act")
+    plan_args = [] if plan is None else [
+        plan.pack, plan.nv, plan.team, plan.per_cta, plan.iters]
     with torch.cuda.device(x.device):
-        rc = getattr(_gn_lib(), f"gn_act_{_KERNEL_DTYPES[x.dtype]}")(
+        rc = getattr(lib, f"gn_act_{_KERNEL_DTYPES[x.dtype]}")(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             ptr(ps), 0 if ps is None else ps.stride(0),
             ptr(pb), 0 if pb is None else pb.stride(0),
-            ptr(x_res), out.data_ptr(), B, H * W, C, int(gelu), _stream(x))
-    _rc("gn_act", rc, f"x {tuple(x.shape)}, {x.dtype}")
-    gn_act_cuda.launches += 1
-    return out
+            ptr(x_res), out.data_ptr(), B, H * W, C, int(gelu), *plan_args,
+            _stream(x))
+    _rc("gn_act", rc, f"x {tuple(x.shape)}, {x.dtype}, {plan}")
 
 
 gn_act_cuda.launches = 0
@@ -749,7 +856,9 @@ def attention_core_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).reshape(B, T, C)
 
 
-ATTN_MAX_DH = 128   # the widest head the kernel takes
+ATTN_TILE_MAX_DH = 128   # the widest head the kernel's tiles take
+# the row path (Dh > 128) holds four rows of Dh + T floats in shared memory
+ATTN_ROWS_MAX = 227 * 1024 // 16
 
 
 def _attention_lib() -> ctypes.CDLL:
@@ -763,18 +872,24 @@ def _attention_lib() -> ctypes.CDLL:
 
 def attention_core_plan(B: int, T: int, num_heads: int, Dh: int,
                         dtype: torch.dtype) -> dict:
-    """The CUDA launcher's plan for one call, for reports: the padded head
-    width, keys a chunk, (batch, head) pairs a block, streamed or resident,
-    dynamic shared memory in bytes and blocks (needs the built kernel)."""
-    out = (ctypes.c_long * 6)()
+    """The CUDA launcher's plan for one call, for reports (needs the built
+    kernel). Tiles (Dh <= 128): the padded head width, keys a chunk,
+    (batch, head) pairs a block, streamed or resident, dynamic shared memory
+    in bytes and blocks. Rows (Dh > 128): the head width, query rows a
+    block, shared memory and blocks."""
+    out = (ctypes.c_long * 7)()
     rc = _attention_lib().attention_core_plan(
         B, T, num_heads, Dh, torch.tensor([], dtype=dtype).element_size(),
         ctypes.addressof(out))
     if rc != 0:
         raise ValueError(f"attention_core_plan: no plan for T={T}, Dh={Dh}")
+    v = [int(x) for x in out]
+    if v[0] == 1:
+        return dict(path="rows", head_width=v[1], rows_a_block=v[3],
+                    smem=v[5], blocks=v[6])
     keys = ("head_width", "chunk", "pairs_a_block", "streamed", "smem",
             "blocks")
-    return dict(zip(keys, (int(x) for x in out)))
+    return dict(path="tiles", **dict(zip(keys, v[1:])))
 
 
 def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -798,19 +913,18 @@ def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention_core_cuda: q, k, v must be contiguous")
     Dh = C // num_heads
-    if Dh > ATTN_MAX_DH:
-        raise ValueError(f"attention_core_cuda: Dh={Dh} exceeds the kernel's "
-                         f"limit (Dh <= {ATTN_MAX_DH})")
-    lib = _attention_lib()
+    if Dh > ATTN_TILE_MAX_DH and Dh + T > ATTN_ROWS_MAX:
+        raise ValueError(
+            f"attention_core_cuda: Dh={Dh} + T={T} exceeds the row path's "
+            f"shared-memory limit (Dh + T <= {ATTN_ROWS_MAX} where Dh > "
+            f"{ATTN_TILE_MAX_DH})")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, f"attention_core_{_KERNEL_DTYPES[q.dtype]}")(
+        rc = getattr(_attention_lib(),
+                     f"attention_core_{_KERNEL_DTYPES[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, T, num_heads, Dh, _sqrt_dh(Dh, q.dtype), stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_core kernel launch failed: CUDA error "
-                           f"{rc} at B={B}, T={T}, C={C}, {q.dtype}")
+            B, T, num_heads, Dh, _sqrt_dh(Dh, q.dtype), _stream(q))
+    _rc("attention_core", rc, f"B={B}, T={T}, C={C}, {q.dtype}")
     _DISPATCH.launches += 1
     return out
 

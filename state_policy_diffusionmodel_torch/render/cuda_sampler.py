@@ -11,7 +11,7 @@ in float32, in that order, and the result is tex_bank[track_ids[b],
 floor(fx), floor(fy)] where 0 <= fx, fy < T, else 0. The TPU kernel DMAs a
 texel window and gathers with one-hot matmuls because the TPU has no
 per-lane gather; Hopper has one, so `csrc/sample_banked.cu` gathers
-directly and the window origin of the TPU kernel has no counterpart here.
+directly, on a grid `sample_banked_plan` sizes to the card.
 
 - `sample_banked` launches the CUDA kernel for CUDA tensors (and counts
   the launch in `sample_banked.launches`) and takes the plain version for
@@ -23,6 +23,8 @@ directly and the window origin of the TPU kernel has no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -63,25 +65,42 @@ def sample_banked_ref(tex_bank: torch.Tensor, track_ids: torch.Tensor,
                                    device=tex_bank.device))
 
 
-def _sampler_lib() -> ctypes.CDLL:
+THREADS, PIXELS_A_THREAD = 256, 4
+# CTAs across one env's 9,216 pixels: 1,024 each (8 screen rows)
+STRIPS = ROWS * LANES // (THREADS * PIXELS_A_THREAD)
+_CTAS_A_SM = 8          # 2,048 threads an SM in CTAs of 256
+
+
+@functools.lru_cache(maxsize=None)
+def sample_banked_plan(B: int, n_sm: int) -> int:
+    """K2's grid for B envs on a card of `n_sm` SMs: `groups` x STRIPS CTAs,
+    CTA (strip, g) rendering its strip of envs g, g + groups, ...; as many
+    as the SMs hold at once (8 of 256 threads each), at most one a strip of
+    an env. Cached: the wrapper asks on every call."""
+    return max(1, min(B, n_sm * _CTAS_A_SM // STRIPS))
+
+
+def _sampler_lib(name: str = "sample_banked") -> ctypes.CDLL:
     from ..kernels import build
 
-    lib = build.library("sample_banked")
+    lib = build.library(name)
     if not getattr(lib, "_spdm_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        grid = [i32] if name == "sample_banked" else []
         lib.sample_banked_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # tex .. out
             i32, i32, i32,                            # B, U, T
-            f32, f32, ptr]                            # playfield, scale, stream
-        lib.sample_banked_launch.restype = i32
+            f32, f32, *grid, ptr]                     # playfield, scale,
+        lib.sample_banked_launch.restype = i32        # [groups,] stream
         lib._spdm_typed = True
     return lib
 
 
 def sample_banked_cuda(tex_bank, track_ids, cos_a, sin_a, pos, rx, ry):
-    """Launch the CUDA kernel on the bank's device and current stream;
-    raises on any input it does not take and on a refused launch. Track
-    ids outside [0, U) read nothing and give 0."""
+    """Launch the CUDA kernel on the bank's device and current stream under
+    `sample_banked_plan`; raises on any input it does not take (rx and ry
+    must be 16-byte aligned, as `raster.pixel_planes` gives them) and on a
+    refused launch. Track ids outside [0, U) read nothing and give 0."""
     dev = tex_bank.device
     args = dict(tex_bank=tex_bank, track_ids=track_ids, cos_a=cos_a,
                 sin_a=sin_a, pos=pos, rx=rx, ry=ry)
@@ -99,7 +118,7 @@ def sample_banked_cuda(tex_bank, track_ids, cos_a, sin_a, pos, rx, ry):
     B = track_ids.shape[0] if track_ids.dim() == 1 else -1
     U, T = tex_bank.shape[0], tex_bank.shape[-1]
     shapes_ok = (tex_bank.dim() == 3 and tex_bank.shape[1] == T and B > 0
-                 and B <= 65535 and tuple(cos_a.shape) == (B,)
+                 and tuple(cos_a.shape) == (B,)
                  and tuple(sin_a.shape) == (B,) and tuple(pos.shape) == (B, 2)
                  and tuple(rx.shape) == (ROWS, LANES)
                  and tuple(ry.shape) == (ROWS, LANES))
@@ -108,18 +127,36 @@ def sample_banked_cuda(tex_bank, track_ids, cos_a, sin_a, pos, rx, ry):
             f"{k} {tuple(t.shape)}" for k, t in args.items()))
     if not all(t.is_contiguous() for t in args.values()):
         raise ValueError("sample_banked_cuda: inputs must be contiguous")
+    if rx.data_ptr() % 16 or ry.data_ptr() % 16:
+        raise ValueError("sample_banked_cuda: rx and ry must be 16-byte "
+                         "aligned")
+    from ..models.cuda_ops import _n_sm
+
+    out = _sample_banked_launch(args, sample_banked_plan(B, _n_sm(dev)))
+    _DISPATCH.launches += 1
+    return out
+
+
+def _sample_banked_launch(args: dict, groups: Optional[int]) -> torch.Tensor:
+    """K2 on `groups` x STRIPS CTAs, on inputs `sample_banked_cuda` has
+    checked; with no groups, the previous design
+    (`csrc/sample_banked_prev.cu`)."""
+    tex_bank, track_ids = args["tex_bank"], args["track_ids"]
+    dev = tex_bank.device
+    B, U, T = track_ids.shape[0], tex_bank.shape[0], tex_bank.shape[-1]
     out = torch.empty((B, ROWS, LANES), dtype=torch.int32, device=dev)
-    lib = _sampler_lib()
+    grid = [] if groups is None else [groups]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sample_banked_launch(
-            tex_bank.data_ptr(), track_ids.data_ptr(), cos_a.data_ptr(),
-            sin_a.data_ptr(), pos.data_ptr(), rx.data_ptr(), ry.data_ptr(),
-            out.data_ptr(), B, U, T, PLAYFIELD, texel_scale(T), stream)
+        lib = "sample_banked_prev" if groups is None else "sample_banked"
+        rc = _sampler_lib(lib).sample_banked_launch(
+            *(args[k].data_ptr() for k in ("tex_bank", "track_ids", "cos_a",
+                                           "sin_a", "pos", "rx", "ry")),
+            out.data_ptr(), B, U, T, PLAYFIELD, texel_scale(T), *grid,
+            stream)
     if rc != 0:
         raise RuntimeError(f"sample_banked kernel launch failed: CUDA error "
-                           f"{rc} at B={B}, U={U}, T={T}")
-    _DISPATCH.launches += 1
+                           f"{rc} at B={B}, U={U}, T={T}, groups {groups}")
     return out
 
 

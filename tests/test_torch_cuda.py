@@ -7,6 +7,8 @@ CPU mode. They import no JAX, so they also run where JAX is not installed:
         tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -83,9 +85,48 @@ def test_attention_kernel_refuses_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(1, 2).contiguous().transpose(1, 2)
         cuda_ops.attention_core_cuda(t, t, t, 4)
-    wide = torch.randn((1, 16, 4 * 136), device=device)    # Dh = 136
-    with pytest.raises(ValueError, match=r"limit \(Dh <= 128\)"):
-        cuda_ops.attention_core_cuda(wide, wide, wide, 4)
+    # the row path (Dh > 128) holds four rows of Dh + T floats in shared
+    # memory: one row past that limit is refused, by name
+    T = cuda_ops.ATTN_ROWS_MAX - 129 + 1
+    wide = torch.randn((1, T, 129), device=device)
+    with pytest.raises(ValueError, match=r"shared-memory limit \(Dh \+ T "
+                       r"<= 14528"):
+        cuda_ops.attention_core_cuda(wide, wide, wide, 1)
+
+
+# (T, C) with 4 heads wider than 128: Dh = 136, 160 (ragged and whole T),
+# 256 (the width-256 UNetFiLM's (16, 1024)), and a 2-head Dh = 320
+WIDE_HEADS = [(16, 544), (20, 640), (64, 640), (16, 1024), (37, 1024),
+              (200, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,C", WIDE_HEADS)
+def test_attention_kernel_wide_heads_match_plain(device, T, C, dtype):
+    """Heads wider than 128 take the row path (attention_core_plan says
+    so): against the plain version within the tiles' limits, bit-identical
+    on repeat, one launch a call."""
+    gen = torch.Generator(device=device).manual_seed(T * 7 + C)
+    q, k, v = (torch.randn((3, T, C), generator=gen, device=device).to(dtype)
+               for _ in range(3))
+    plan = cuda_ops.attention_core_plan(3, T, 4, C // 4, dtype)
+    assert plan["path"] == "rows" and plan["head_width"] == C // 4
+    before = cuda_ops.attention_core.launches
+    got = cuda_ops.attention_core(q, k, v, 4)
+    again = cuda_ops.attention_core(q, k, v, 4)
+    torch.cuda.synchronize()
+    assert cuda_ops.attention_core.launches == before + 2
+    want = cuda_ops.attention_core_ref(q, k, v, 4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    assert torch.equal(got, again)
+    # two heads of 320, unaligned rows: element by element
+    q2 = torch.randn(1 + 2 * T * 640, generator=gen, device=device).to(
+        dtype)[1:].view(2, T, 640)
+    torch.testing.assert_close(
+        cuda_ops.attention_core_cuda(q2, q2, q2, 2).float(),
+        cuda_ops.attention_core_ref(q2, q2, q2, 2).float(), rtol=0,
+        atol=TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +170,50 @@ def test_sample_banked_kernel_equals_plain(device):
     assert (want >= 8).any() and (want[-2:] == 0).all()
 
 
+def _k2_headings(device, B, seed):
+    """B poses on the first track's road at headings 0, 45 and 90 degrees
+    in turn, every 16th from the 9th on off the field."""
+    from state_policy_diffusionmodel_torch.render import raster
+    from state_policy_diffusionmodel_torch.track import PLAYFIELD, \
+        load_or_build_bank
+
+    bank = load_or_build_bank(4, bake=True, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    ang = torch.tensor([0.0, 45.0, 90.0]).repeat(B // 3 + 1)[:B] * (
+        torch.pi / 180)
+    road = bank.seg_b[0, :200].cpu()
+    pos = road[torch.randint(0, 200, (B,), generator=gen)]
+    pos[8::16] = torch.tensor([PLAYFIELD + 30.0, -PLAYFIELD - 400.0])
+    _, _, rx, ry = raster.pixel_planes(device)
+    ids = (torch.arange(B) % 4).to(torch.int32)
+    return (bank.tex, ids.to(device), torch.cos(ang).to(device),
+            torch.sin(ang).to(device), pos.to(device), rx, ry)
+
+
+@pytest.mark.parametrize("groups", [None, 1, 7])
+@pytest.mark.parametrize("B", [1, 1023, 1025])
+def test_sample_banked_grids_equal_plain_at_headings(device, B, groups):
+    """The grid sample_banked_plan sizes to the card (None) and grids of 1
+    and 7 env groups (each CTA looping over many envs), at headings 0, 45
+    and 90 degrees and off-field poses: every output equal to the plain
+    version's."""
+    from state_policy_diffusionmodel_torch.render import cuda_sampler as ks
+
+    args = _k2_headings(device, B, seed=B)
+    names = ("tex_bank", "track_ids", "cos_a", "sin_a", "pos", "rx", "ry")
+    got = ks._sample_banked_launch(
+        dict(zip(names, args)),
+        ks.sample_banked_plan(B, cuda_ops._n_sm(device)) if groups is None
+        else groups)
+    want = ks.sample_banked_ref(*args)
+    assert int((got != want).sum()) == 0
+    assert (want >= 8).any()
+    if B > 16:
+        assert (want[8::16] == 0).all()
+    if groups is None:
+        assert torch.equal(ks.sample_banked(*args), want)
+
+
 def test_sample_banked_kernel_refuses_what_it_does_not_take(device):
     from state_policy_diffusionmodel_torch.render import cuda_sampler as ks
 
@@ -142,6 +227,10 @@ def test_sample_banked_kernel_refuses_what_it_does_not_take(device):
                               rx, ry)
     with pytest.raises(ValueError, match="CUDA device"):
         ks.sample_banked_cuda(tex, ids, c.cpu(), s, pos, rx, ry)
+    shifted = torch.empty(1 + rx.numel(), device=device)[1:].view(rx.shape)
+    shifted.copy_(rx)
+    with pytest.raises(ValueError, match="16-byte"):
+        ks.sample_banked_cuda(tex, ids, c, s, pos, shifted, ry)
 
 
 def test_env_step_renders_through_k2_once(device):
@@ -246,29 +335,78 @@ def test_conv3x3_kernel_plan_paths_match_plain_and_repeat(device, B, H, W,
     assert _rel(got, cuda_ops.conv3x3_ref(x, w)) <= CONV_TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(256, 4, 1, 512), (8, 32, 8, 128),
-                                   (3, 5, 3, 6)])
-@pytest.mark.parametrize("variant", ["gn", "gelu", "post", "post_res"])
-def test_gn_act_kernel_matches_plain(device, variant, shape, dtype):
-    gen = torch.Generator(device=device).manual_seed(sum(shape))
+def _gn_args(gen, shape, dtype, variant, offset=0):
+    """K4's inputs for one variant; x and x_res start `offset` elements into
+    their storage (1: not 16-byte aligned)."""
     B, C = shape[0], shape[-1]
-    x = _randn(gen, *shape, dtype=dtype, scale=2.0, shift=0.5)
+    n = B * shape[1] * shape[2] * C
+    x = _randn(gen, n + offset, dtype=dtype, scale=2.0, shift=0.5)[
+        offset:].view(shape)
     g = _randn(gen, C, dtype=dtype, scale=0.3, shift=1.0)
     b = _randn(gen, C, dtype=dtype, scale=0.2)
     # ps as the U-Net gives it: a strided view (one row of a (B, 2, C) FiLM)
     ps = _randn(gen, B, 2, C, dtype=dtype, scale=0.2, shift=1.0)[:, 0]
     pb = _randn(gen, B, C, dtype=dtype, scale=0.3)
-    xr = _randn(gen, *shape, dtype=dtype)
-    args = {"gn": (x, g, b), "gelu": (x, g, b, None, None, None, True),
+    xr = _randn(gen, n + offset, dtype=dtype)[offset:].view(shape)
+    return {"gn": (x, g, b), "gelu": (x, g, b, None, None, None, True),
             "post": (x, g, b, ps, pb),
             "post_res": (x, g, b, ps, pb, xr)}[variant]
+
+
+# (B, H, W, C): the plan's branches at r5blend's levels (B=256: 4x1x256 a
+# pack a thread, 8-byte packs in bf16, 16x4x64 16 values a thread read
+# once, 32x8x128 eight passes), teams packed two to a CTA (4x1x64, B=5:
+# the last CTA's second team idle), one-warp teams packed four to a CTA
+# (HW=1, C=12, B=5 in bf16) and the general instance: B=1 in eight
+# passes, B=3, HW=1, C=12 (whole 16-byte packs in fp32 only, one-value
+# packs in bf16), C=6 in neither
+GN_SHAPES = [(256, 4, 1, 512), (8, 32, 8, 128), (3, 5, 3, 6),
+             (256, 4, 1, 256), (256, 16, 4, 64), (256, 32, 8, 128),
+             (1, 32, 8, 128), (3, 4, 1, 256), (5, 4, 1, 64), (5, 1, 1, 12),
+             (4, 7, 3, 12)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+@pytest.mark.parametrize("variant", ["gn", "gelu", "post", "post_res"])
+def test_gn_act_kernel_matches_plain(device, variant, shape, dtype):
+    """Each variant against the plain version, bit-identical on repeat."""
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    args = _gn_args(gen, shape, dtype, variant)
     before = cuda_ops.gn_act_cuda.launches
     got = cuda_ops.gn_act_cuda(*args)
+    again = cuda_ops.gn_act_cuda(*args)
     torch.cuda.synchronize()
-    assert cuda_ops.gn_act_cuda.launches == before + 1
-    assert got.dtype == dtype and got.shape == x.shape
+    assert cuda_ops.gn_act_cuda.launches == before + 2
+    assert got.dtype == dtype and got.shape == args[0].shape
     assert _rel(got, cuda_ops.gn_act_ref(*args)) <= CONV_TOL[dtype]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["gn", "gelu", "post", "post_res"])
+def test_gn_act_kernel_unaligned_and_forced_plans_match_plain(device,
+                                                              variant, dtype):
+    """x and x_res one element off 16-byte alignment (one-value packs), and
+    at 32x8x128 every plan kernels/ab.py may try: 16-byte and (bf16) 8-byte
+    packs, 1-8 packs a thread (4-64 passes), a team a CTA or as many as
+    fit."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    args = _gn_args(gen, (6, 32, 8, 128), dtype, variant, offset=1)
+    assert cuda_ops.gn_act_plan(6, 256, 128, dtype, aligned=False).pack == 1
+    assert _rel(cuda_ops.gn_act_cuda(*args),
+                cuda_ops.gn_act_ref(*args)) <= CONV_TOL[dtype]
+    args = _gn_args(gen, (6, 32, 8, 128), dtype, variant)
+    want = cuda_ops.gn_act_ref(*args)
+    for pack in {16 // dtype.itemsize, 4}:
+        for nv in (1, 2, 4, 8):
+            plan = cuda_ops._gn_act_plan_for(6, 256, 128, pack, nv)
+            for per_cta in (1, 256 // plan.team):
+                plan = dataclasses.replace(plan, per_cta=per_cta,
+                                           grid=-(-6 // per_cta))
+                out = torch.empty_like(args[0])
+                cuda_ops._gn_act_launch(out, plan, *args)
+                assert _rel(out, want) <= CONV_TOL[dtype], plan
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

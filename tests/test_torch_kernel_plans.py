@@ -1,6 +1,7 @@
 """The launch plans of the port's 3x3 conv kernels (K3 `conv3x3_plan`, K6
-`conv_dw_plan` in bf16; its fp32 plan is held in test_torch_train_ops.py)
-and the kernel build's cache. Plans are plain Python, so they are held
+`conv_dw_plan` in bf16; its fp32 plan is held in test_torch_train_ops.py),
+of K4 (`gn_act_plan`, with a model of its summation order) and K2
+(`sample_banked_plan`), and the kernel build's cache. Plans are plain Python, so they are held
 here on the CPU at every r5blend shape of a forward (K3) and of a training
 step (K6) at B=256 on an H100's 132 SMs: every output element in exactly
 one tile, K covered exactly once by the split, the grid at least one full
@@ -9,14 +10,17 @@ enough to split, and the workspaces the size the kernels write. (The
 shared-memory ring is the C launchers' own; the card tests hold it.)
 """
 
+import math
 import shutil
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from state_policy_diffusionmodel_torch.kernels import build
 from state_policy_diffusionmodel_torch.models import cuda_ops
+from state_policy_diffusionmodel_torch.render import cuda_sampler
 
 N_SM, B = 132, 256
 # (H, W, Cin, Cout) of the 30 K3 calls of one r5blend U-Net forward (the 15
@@ -203,3 +207,186 @@ def test_build_keeps_the_nvcc_log_beside_a_cached_library(tmp_path,
     assert again.log == first.log
     assert sorted(p.suffix for p in (tmp_path / "build").iterdir()) == [
         ".log", ".so"]
+
+
+# ---------------------------------------------------------------------------
+# K4: gn_act_plan and its summation order
+# ---------------------------------------------------------------------------
+
+# (H, W, C) of the 10 distinct K4 shapes of one r5blend forward (B=256)
+GN_SHAPES = sorted({(H, W, cout) for H, W, _, cout in _DC})
+# off the path: B=1, HW=1, C=12 (16-byte packs in fp32 only) and 6 (in
+# neither), C=96 (a team of 96 threads), a slice of 2,048 passes, and C
+# whose packs cannot keep a thread's channels fixed
+GN_EDGES = [(1, 256, 128), (1, 1, 12), (3, 15, 12), (5, 15, 6), (5, 4, 96),
+            (2, 1 << 16, 64), (2, 1, 16384), (7, 3, 1000)]
+# K4 against its plain version (chip_smoke.py's CONV_TOL)
+CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _gn_owners(plan, HW, C):
+    """How many threads own each pack of one batch element: pack
+    (it * nv + k) * team + t for every pass, slot and thread of the team."""
+    it, k, t = np.meshgrid(np.arange(plan.iters), np.arange(plan.nv),
+                           np.arange(plan.team), indexing="ij")
+    p = ((it * plan.nv + k) * plan.team + t).ravel()
+    packs = HW * C // plan.pack
+    return np.bincount(p[p < packs], minlength=packs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,HW,C", [(256, H * W, C) for H, W, C in GN_SHAPES]
+                         + GN_EDGES)
+def test_gn_act_plan_owns_every_value_once_and_fits(B, HW, C, dtype):
+    """Every value of a batch element is one thread's, no pass is empty;
+    the grid holds every batch element (packed teams, the last CTA's teams
+    past B idle); a CTA and the packs a thread holds fit the kernel (256
+    threads, at most eight packs: 32 registers); with wide packs (16
+    bytes, or 8 for a bf16 slice of fewer than 256 16-byte packs) a
+    thread's channels stay fixed (team x pack a multiple of C); r5blend's
+    shapes take up to 16 values a thread a pass."""
+    assert len(GN_SHAPES) == 10
+    plan = cuda_ops.gn_act_plan(B, HW, C, dtype)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    assert (_gn_owners(plan, HW, C) == 1).all()
+    assert plan.pack * (HW * C // plan.pack) == HW * C
+    assert (plan.iters - 1) * plan.nv * plan.team * plan.pack < HW * C
+    assert plan.team % 32 == 0 and plan.threads <= 256
+    assert plan.nv in (1, 2, 4, 8)
+    assert plan.grid * plan.per_cta >= B > (plan.grid - 1) * plan.per_cta
+    if plan.vec:
+        wide = 16 // esize
+        assert plan.pack == wide or (
+            plan.pack == 4 and wide == 8 and HW * C // wide < 256)
+        assert C % plan.pack == 0 and plan.team * plan.pack % C == 0
+    else:
+        assert plan.pack == 1
+    if (HW, C) in {(H * W, C) for H, W, C in GN_SHAPES}:
+        # threads first (256, or a pack each), then up to 16 values each
+        assert plan.vec and plan.nv * plan.pack <= 16
+        assert plan.team == 256 or plan.team * plan.pack == HW * C
+    # an unaligned x takes one-value packs
+    assert not cuda_ops.gn_act_plan(B, HW, C, dtype, False).vec
+
+
+def test_gn_act_plan_branches():
+    """The plan's branches: a pack a thread where the slice has at most 256
+    (bf16 4x1x256: 8-byte packs, 256 threads of 4 values, as fp32's),
+    up to 16 values a thread on 256 threads read once (16x4x64), passes
+    beyond (8 at 32x8x128), and teams of fewer than 128 threads packed into
+    one CTA (a slice of 256 bf16 values: 64 8-byte packs, two teams a
+    CTA)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        p = cuda_ops.gn_act_plan(256, 4, 256, dtype)
+        assert (p.pack, p.team, p.nv, p.per_cta, p.iters) == (4, 256, 1, 1, 1)
+    assert cuda_ops.gn_act_plan(256, 4, 512, bf16).pack == 8
+    for dtype in (f32, bf16):
+        p = cuda_ops.gn_act_plan(256, 64, 64, dtype)
+        assert (p.team, p.nv * p.pack, p.iters) == (256, 16, 1)
+        assert cuda_ops.gn_act_plan(256, 256, 128, dtype).iters == 8
+    p = cuda_ops.gn_act_plan(5, 4, 64, bf16)
+    assert (p.pack, p.team, p.per_cta, p.grid) == (4, 64, 2, 3)
+
+
+def _gn_model(x, gamma, beta, ps, pb, x_res, gelu, plan):
+    """K4 in plain torch with the kernel's two sums: each thread adds its
+    values and their squares (exact in double) in pack order in double and
+    rounds both to f32, a warp adds its lanes by an xor butterfly, a team
+    its warps in order; then the statistics and the epilogue of
+    gn_act_ref."""
+    B, H, W, C = x.shape
+    n, e = H * W * C, plan.pack
+    G = plan.team
+    xf = torch.zeros(B, plan.iters * plan.nv * G * e)
+    xf[:, :n] = x.float().reshape(B, n)
+    seq = xf.reshape(B, plan.iters * plan.nv, G, e).permute(0, 2, 1, 3) \
+        .reshape(B, G, -1)
+    sd = qd = torch.zeros(B, G, dtype=torch.float64)
+    for i in range(seq.shape[-1]):
+        v = seq[..., i].double()
+        sd, qd = sd + v, qd + v * v
+    s, q = sd.float(), qd.float()
+    lanes = torch.arange(32)
+
+    def across(a):
+        a = a.reshape(B, G // 32, 32)
+        for off in (16, 8, 4, 2, 1):
+            a = a + a[..., lanes ^ off]
+        t = torch.zeros(B)
+        for w in range(G // 32):
+            t = t + a[:, w, 0]
+        return t[:, None, None]
+
+    s, q = across(s), across(q)
+    m = s / n
+    rs = torch.rsqrt((q / n - m * m).clamp_min(0.0) + cuda_ops.GN_EPS)
+    y = (x.float().reshape(B, H * W, C) - m) * rs * gamma.float() \
+        + beta.float()
+    if gelu:
+        y = cuda_ops.gelu_exact(y)
+    if ps is not None:
+        y = y * ps.float()[:, None, :] + pb.float()[:, None, :]
+    if x_res is not None:
+        y = cuda_ops.gelu_exact(y + x_res.float().reshape(B, H * W, C))
+    return y.to(x.dtype).reshape(B, H, W, C)
+
+
+@pytest.fixture()
+def warm_erf():
+    """The first torch.erf call of a process can return, for one thread's
+    chunk, values that saturate at -1 where later calls do not (PyTorch
+    2.13's CPU build), which moves GELU's far tail by ~6e-5 of the largest
+    output; one call first makes the model and the plain version take the
+    same erf."""
+    torch.erf(torch.linspace(-6.0, 6.0, 1 << 16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C", GN_SHAPES)
+def test_gn_act_summation_order_model_matches_plain(warm_erf, H, W, C,
+                                                    dtype):
+    """The kernel's fixed summation order (modelled on the CPU under the
+    plan r5blend's B=256 gets) stays within CONV_TOL of gn_act_ref in every
+    variant."""
+    gen = torch.Generator().manual_seed(H * W * C)
+    B = 2
+    r = lambda *shape: torch.randn(shape, generator=gen)
+    x, g, b = 2 * r(B, H, W, C) + 0.5, 1 + 0.3 * r(C), 0.2 * r(C)
+    ps, pb, xr = 1 + 0.2 * r(B, C), 0.3 * r(B, C), r(B, H, W, C)
+    x, g, b, ps, pb, xr = (t.to(dtype) for t in (x, g, b, ps, pb, xr))
+    plan = cuda_ops.gn_act_plan(256, H * W, C, dtype)
+    for args in ((x, g, b, None, None, None, False),
+                 (x, g, b, None, None, None, True),
+                 (x, g, b, ps, pb, None, False), (x, g, b, ps, pb, xr, False)):
+        got = _gn_model(*args, plan).float()
+        want = cuda_ops.gn_act_ref(*args).float()
+        assert (got - want).abs().max() / want.abs().max() \
+            <= CONV_TOL[dtype], args[3:]
+
+
+# ---------------------------------------------------------------------------
+# K2: sample_banked_plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B", [1, 255, 256, 1024, 1025])
+def test_sample_banked_plan_covers_every_pixel_once(B):
+    """Every (env, pixel) is rendered by exactly one thread of one CTA, the
+    grid within what the SMs hold at once (8 CTAs of 256 threads each)."""
+    groups = cuda_sampler.sample_banked_plan(B, N_SM)
+    pixels = cuda_sampler.ROWS * cuda_sampler.LANES
+    strips = cuda_sampler.STRIPS
+    assert strips * cuda_sampler.THREADS * cuda_sampler.PIXELS_A_THREAD \
+        == pixels == 9216
+    assert groups * strips <= N_SM * 8 and 1 <= groups <= B
+    count = np.zeros((B, pixels), np.int64)
+    tid = np.arange(cuda_sampler.THREADS)
+    w, lane = tid // 32, tid % 32
+    for cta in range(groups * strips):
+        strip, group = cta % strips, cta // strips
+        # the kernel's pixel_of: warp w, lane l of the strip
+        p0 = (strip * 8 + lane // 4) * cuda_sampler.LANES + w * 16 \
+            + 4 * (lane % 4)
+        p = (p0[:, None] + np.arange(4)).ravel()
+        count[group::groups, p] += 1
+    assert (count == 1).all()

@@ -9,6 +9,7 @@ unless a case states otherwise.
 """
 
 import functools
+import math
 import re
 from pathlib import Path
 
@@ -82,6 +83,22 @@ def test_attention_core_ref_matches_attn_xla(T, C):
     _close(cuda_ops.attention_core_ref(_t(q), _t(k), _t(v), 4), want)
 
 
+# heads wider than 128, which the card's kernel takes on its row path: Dh
+# = 160 (ragged and whole T) and 256 (the width-256 UNetFiLM's (16, 1024))
+WIDE_HEADS = [(16, 640), (20, 640), (16, 1024), (64, 1024)]
+
+
+@pytest.mark.parametrize("T,C", WIDE_HEADS)
+def test_attention_core_ref_wide_heads_match_attn_xla(T, C):
+    """fp32, within 1e-5 of the largest output."""
+    rng = np.random.default_rng(T + C)
+    q, k, v = (_np(rng, (2, T, C)) for _ in range(3))
+    want = np.asarray(po._attn_xla(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), 4))
+    got = cuda_ops.attention_core_ref(_t(q), _t(k), _t(v), 4).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("T,C", R5BLEND_ATTN + WIDE_ATTN)
 def test_attention_core_ref_matches_pallas_kernel(interpret, T, C):
     rng = np.random.default_rng(T * 7 + C)
@@ -121,12 +138,21 @@ def test_attention_core_cuda_refuses_cpu_tensors():
 
 
 def test_attention_core_head_limit_mirrors_the_kernel():
-    """The wrapper's Dh limit is the CUDA launcher's (kMaxDh), which
-    refuses wider heads; the card test checks the raise."""
-    src = (Path(cuda_ops.__file__).parents[1] / "csrc" /
-           "attention_core.cu").read_text()
-    limit = re.search(r"constexpr int kMaxDh = (\d+);", src)
-    assert limit and int(limit.group(1)) == cuda_ops.ATTN_MAX_DH == 128
+    """The wrapper's limits are the CUDA launcher's: heads up to kMaxDh
+    (128) take the tiles, wider ones the row kernel, whose kRowWarps rows
+    of Dh + T floats must fit kMaxSmem bytes of shared memory; the card
+    test checks the raise past that."""
+    csrc = Path(cuda_ops.__file__).parents[1] / "csrc"
+    src = (csrc / "attention_core.cu").read_text()
+
+    def const(name, text):
+        expr = re.search(rf"constexpr int {name} = ([\d *]+);", text)
+        return math.prod(int(t) for t in expr.group(1).split("*"))
+
+    assert const("kMaxDh", src) == cuda_ops.ATTN_TILE_MAX_DH == 128
+    smem = const("kMaxSmem", (csrc / "conv_tile.cuh").read_text())
+    assert smem == 227 * 1024
+    assert smem // (const("kRowWarps", src) * 4) == cuda_ops.ATTN_ROWS_MAX
 
 
 # ---------------------------------------------------------------------------
