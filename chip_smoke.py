@@ -9,9 +9,8 @@ their records, the card and the last line as below.
 Phases, each printed with its seconds:
   1. device   the card (nvidia-smi name and power limit), torch, nvcc;
   2. build    nvcc builds every kernel of the port (K1-K4 and K6; K5 is K3
-              and K4), and the previous designs of K2 and K4 that the
-              kernel phases time them against, into build/, one nvcc per
-              source, all started together;
+              and K4) into build/, one nvcc per source, all started
+              together;
   3. K1       the attention_core CUDA kernel (the ptxas line of each of
               its kernels; the row kernel must not spill) against its plain
               PyTorch version at the five attention shapes of one r5blend
@@ -36,12 +35,9 @@ Phases, each printed with its seconds:
               its kernels;
               gn_act (K4) at its 10 shapes in its four variants (GroupNorm,
               +GELU, +affine, +affine+residual), twice (bit-identical), with
-              its plan, its time, the previous design's (csrc/gn_act_prev.cu,
-              in turns with it, both launched plainly, the median of three
-              readings each; the ratio of the two and the worst ratio of a
-              type printed), F.group_norm's for
-              GroupNorm alone (a
-              yardstick) and the ptxas lines (no spills); double_conv (K5) at
+              its plan, its time (the median of three readings),
+              F.group_norm's for GroupNorm alone (a yardstick) and the
+              ptxas lines (no spills); double_conv (K5) at
               the 14 distinct shapes of the 15 DoubleConvs;
   K6          conv_dw, the conv weight gradient, against its plain version
               at the 17 distinct conv shapes of one r5blend training step
@@ -54,9 +50,8 @@ Phases, each printed with its seconds:
               against its plain version at B=1024 and B=256 on the 16-track
               bank, on random poses (edges and off-field included) and on
               the env's poses after 50 steps: every output equal, twice,
-              with its plan, its time, the previous design's
-              (csrc/sample_banked_prev.cu, in turns with it), the plain
-              version's and the bound; the golden car states rendered on
+              with its plan, its time, the plain version's and the bound;
+              the golden car states rendered on
               the card within 30 bytes a frame of golden_frames.npz; 16
               envs x 40 steps on the card against the CPU (rewards, tiles
               and done flags equal, positions within ENV_POS_TOL, frames
@@ -89,13 +84,21 @@ Phases, each printed with its seconds:
   denoise     one DDIM-10 denoise in fp32 and under amp, on the default and
               the conv-kernel path;
   5. cpu      a small rollout on the card against the same on the CPU;
-  6. training (the slice's path, written under a temporary directory that
-              is removed at the end):
-     data     r5blend drives 16 envs x 400 frames under amp through the
-              closed loop (exactly 4,000 K1 and 401 K2 launches); each env
-              an episode (pre-step pose, action, post-step frame) in a
-              ReplayBuffer, saved as a zlib zarr store and read back through
-              the port's WindowDataset: 3,200 windows;
+  6. collect  the PID lane follower (mode middle, speed 30) on the 16-track
+              bank (seeds 100..115), 16 envs x 400 steps through
+              data.collect_episodes with car_state: exactly 401 K2 launches
+              (a step and the reset) and nothing else, env steps/s; the
+              same drive stepped once more through the public env and
+              controller API (lane_probe), untimed, its actions equal to
+              the collected ones: the share of steps on which the lane was
+              found, each episode's tile count rising; 50 steps each of
+              the centre follower and
+              the sinusoidal weaver, actions finite; the lane follower's
+              episodes written through ZarrReplayBuffer (zlib) into a
+              temporary directory and read back through load_zarr, equal
+              array for array;
+  7. training (on that store; the run written in the same directory):
+     windows  the port's WindowDataset over it: 16 x 201 = 3,216 windows;
      gradients  one batch of 256 of those windows at fixed t and noise,
               r5blend's weights: the U-Net's gradients on the default path
               (K1), SPDM_CONV_BWD=pallas (K1 + K6), SPDM_CONV_PATH=pallas
@@ -113,12 +116,22 @@ Phases, each printed with its seconds:
               in closed loop;
      timing   train steps at B=256 from r5blend's weights with EMA, fp32
               and amp, on the four paths: the median ms of 5 steps after 2
-              (host wall time ending in a synchronize), samples/s, launches.
-Then one line holds the kernels as JSON (with the policy, env, loop and
-training readings; each kernel's sums over one forward or step in fp32,
-and in bf16 under "bf16"), one the card's name and power limit, and the
-last line is {"ok": true, "device": {...}}. Any failed check exits non-zero
-first.
+              (host wall time ending in a synchronize), samples/s, launches;
+  8. eval     r5blend's EMA weights through cli/evaluate.py's `all` on the
+              collected store in fp32 (window 70, 256 accuracy windows,
+              DDIM-10 leading): each eval's summary and wall seconds, K1
+              launched and no other kernel (the replays do not render),
+              accuracy windows/s, every returned value finite; K1 at the
+              eval's batch sizes (1, 5, 64) on r5blend's five shapes, fp32,
+              within K1_TOL of its plain version and twice bit-identical;
+              and the O(1)
+              car_state warm start at window 70 within 5e-3 of the replay
+              warm start.
+Then one line holds the kernels as JSON (with the policy, env, loop,
+collect, training and eval readings; each kernel's sums over one forward
+or step in fp32, and in bf16 under "bf16"), one the card's name and power
+limit, and the last line is {"ok": true, "device": {...}}. Any failed
+check exits non-zero first.
 
 TF32 is off for matmuls and cuDNN convolutions throughout
 (torch.backends.cuda.matmul.allow_tf32 = False,
@@ -646,10 +659,8 @@ GN_VARIANTS = {"gn": lambda x, g, b, ps, pb, xr: (x, g, b),
 def check_k4(cuda_ops, device, build):
     """K4 alone at the 10 distinct conv-output shapes of the forward, in
     its four variants, fp32 and bf16: against its plain version, twice
-    (bit-identical), with its plan, its time, the previous design's
-    (`csrc/gn_act_prev.cu`, timed in turns with it, the median of three
-    readings each; both launch plainly, so neither overlaps the call before
-    it), the plain version's,
+    (bit-identical), with its plan, its time (the median of three
+    readings), the plain version's,
     F.group_norm's for the `gn` variant (the one PyTorch call computing
     GroupNorm alone, channels-last; timed as a yardstick only) and the
     bound (bytes: x [and x_res] read once, the output written once); first
@@ -677,18 +688,12 @@ def check_k4(cuda_ops, device, build):
                 if not torch.equal(got, again):
                     raise Failed(f"K4 {dtype} {key}: two runs differ")
                 rec["plan"] = dataclasses.asdict(plan)
-                out = torch.empty_like(a[0])
                 x_nchw = a[0].permute(0, 3, 1, 2)
                 kernel = lambda: cuda_ops.gn_act_cuda(*a)
-                prev = lambda: cuda_ops._gn_act_launch(out, None, *a)
-                # in turns (kernel, previous, previous, kernel, kernel,
-                # previous), the median of each side's three: 100 calls a
-                # graph, since the small calls take 3-4 us and a reading
-                # now and then runs long
-                t = [graph_ms(f, 100) for f in (kernel, prev, prev, kernel,
-                                                kernel, prev)]
-                rec["ms"] = sorted(t[i] for i in (0, 3, 4))[1]
-                rec["prev_ms"] = sorted(t[i] for i in (1, 2, 5))[1]
+                # the median of three readings of 100 calls a graph, since
+                # the small calls take 3-4 us and a reading now and then
+                # runs long
+                rec["ms"] = sorted(graph_ms(kernel, 100) for _ in range(3))[1]
                 rec["plain_ms"] = graph_ms(
                     lambda: cuda_ops.gn_act_ref(*a), 20)
                 rec["library_ms"] = (graph_ms(lambda: F.group_norm(
@@ -703,8 +708,7 @@ def check_k4(cuda_ops, device, build):
                     10 * n / PEAK_OPS[torch.float32] * 1e3)
                 print(f"  K4 {rec['dtype']:8s} {key:18s}: rel err "
                       f"{rec['max_rel_err']:.2e}, repeat equal  kernel "
-                      f"{rec['ms']:.4f} ms  previous {rec['prev_ms']:.4f} "
-                      f"({rec['ms'] / rec['prev_ms']:.3f}x)  "
+                      f"{rec['ms']:.4f} ms  "
                       f"plain {rec['plain_ms']:.4f}  group_norm "
                       f"{fmt_ms(rec['library_ms'])}  bound "
                       f"{rec['bound_ms']:.4f} ({rec['bound_by']})  plan "
@@ -713,14 +717,9 @@ def check_k4(cuda_ops, device, build):
         fwd = per_forward(records, gn_calls(),
                           lambda r: (r["H"], r["W"], r["C"], r["variant"]),
                           dtype)
-        worst = max((r for r in records if r["dtype"] == dtype),
-                    key=lambda r: r["ms"] / r["prev_ms"])
         print(f"  K4 {dtype} one forward (30 calls): kernel "
-              f"{fwd['ms']:.4f} ms, previous {fwd['prev_ms']:.4f} ms, bound "
-              f"{fwd['bound_ms']:.4f} ms; worst shape against the previous "
-              f"design {worst['H']}x{worst['W']}x{worst['C']} "
-              f"{worst['variant']} {worst['ms'] / worst['prev_ms']:.3f}x",
-              flush=True)
+              f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, bound "
+              f"{fwd['bound_ms']:.4f} ms", flush=True)
     return records, ptxas
 
 
@@ -930,9 +929,9 @@ def k2_bound(tex, ids, c, s, pos, rx, ry):
 
 def check_k2(cases, build=None):
     """K2 against its plain version on each named case of inputs: every
-    int32 output equal, twice (bit-identical), with its grid, its time, the
-    previous design's (`csrc/sample_banked_prev.cu`, timed in turns with
-    it), the plain version's and the bound; given `build`, first the ptxas
+    int32 output equal, twice (bit-identical), with its grid, its time (the
+    mean of two readings), the plain version's and the bound; given
+    `build`, first the ptxas
     line of each kernel (no spills). Returns (per-case records, ptxas
     rows)."""
     from state_policy_diffusionmodel_torch.models.cuda_ops import _n_sm
@@ -942,7 +941,6 @@ def check_k2(cases, build=None):
     if build is not None:
         ptxas = print_ptxas(build, "sample_banked", ("sample_banked",))
         no_spills(ptxas, "sample_banked", "K2")
-    names = ("tex_bank", "track_ids", "cos_a", "sin_a", "pos", "rx", "ry")
     records = []
     for name, args in cases:
         before = ks.sample_banked.launches
@@ -957,11 +955,8 @@ def check_k2(cases, build=None):
                          "plain version")
         if not torch.equal(got, again):
             raise Failed(f"K2 {name}: two runs differ")
-        by_name = dict(zip(names, args))
         kernel = lambda: ks.sample_banked_cuda(*args)
-        prev = lambda: ks._sample_banked_launch(by_name, None)
-        k1, p1, p2, k2 = (graph_ms(f, 50) for f in (kernel, prev, prev,
-                                                    kernel))
+        k1, k2 = (graph_ms(kernel, 50) for _ in range(2))
         plain_ms = graph_ms(lambda: ks.sample_banked_ref(*args), 10)
         bound_ms, side, texels, n_bytes = k2_bound(*args)
         # the check (twice), 3 warm-up calls and 50 captured in each of the
@@ -971,14 +966,14 @@ def check_k2(cases, build=None):
         groups = ks.sample_banked_plan(B, _n_sm(args[0].device))
         rec = dict(case=name, B=B, launches=launches,
                    mismatches=mismatches, max_abs_err=err, ms=(k1 + k2) / 2,
-                   prev_ms=(p1 + p2) / 2, plain_ms=plain_ms,
+                   plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=side, texels=texels,
                    bytes=n_bytes, in_field=float((want > 0).float().mean()),
                    grid=groups * ks.STRIPS)
         records.append(rec)
         print(f"  K2 {name}: B={B}, 0 of {got.numel()} outputs differ, "
-              f"repeat equal; kernel {rec['ms']:.4f} ms, previous "
-              f"{rec['prev_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"repeat equal; kernel {rec['ms']:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({side}: {n_bytes / 1e6:.1f} MB, "
               f"{texels} distinct texels); grid {rec['grid']} CTAs; {launches} "
               "launches "
@@ -1068,7 +1063,7 @@ def per_forward(records, calls, key, dtype="float32"):
     by_key = {key(r): r for r in records if r["dtype"] == dtype}
     rows = [by_key[c] for c in calls]
     out = {k: sum(r[k] for r in rows)
-           for k in ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_ms_9taps",
+           for k in ("ms", "plain_ms", "bound_ms", "bound_ms_9taps",
                      "bound_ms_taps_computed", "byte_ms", "op_ms", "exp_ms",
                      "bound_ms_two_term") if k in rows[0]}
     out["library_ms"] = (None if rows[0]["library_ms"] is None
@@ -1110,7 +1105,7 @@ def conv_kernel_entries(k3, k4, k5, runs, loop):
             "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
             "library_ms": fwd["library_ms"], "bf16": fwd_bf16,
             "per_shape": recs})
-        for b in ("bound_ms_9taps", "bound_ms_taps_computed", "prev_ms"):
+        for b in ("bound_ms_9taps", "bound_ms_taps_computed"):
             if b in fwd:
                 entries[-1][b] = fwd[b]
     entries[-1]["sources"] = [csrc + "conv3x3.cu", csrc + "gn_act.cu"]
@@ -1138,8 +1133,24 @@ GRAD_TOL, GRAD_ZERO = 1e-4, 1e-6
 # amp: a kernel path's relative L2 distance from the fp32 plain gradient may
 # exceed the amp plain path's own by at most this factor
 AMP_GRAD_FACTOR = 1.5
-# the card's data: envs x frames of r5blend driving under amp
-DATA_ENVS, DATA_FRAMES = 16, 400
+# the card's data: the PID lane follower (mode middle, 30 speed units) on
+# each track of the cached 16-track bank (seeds 100..115), COLLECT_STEPS
+# steps; SHORT_STEPS steps each of the other two drivers
+DATA_ENVS, COLLECT_STEPS, SHORT_STEPS = 16, 400, 50
+DATA_SEEDS = list(range(100, 100 + DATA_ENVS))
+# the eval phase: r5blend's EMA weights through cli/evaluate.py's `all` on
+# the collected store, DDIM-10 leading
+EVAL_ARGS = ["all", "--run_dir", RUN_DIR, "--ema", "--dataset_name",
+             "card.zarr", "--window", "70", "--max_windows", "256",
+             "--sampler", "ddim", "--num_inference_steps", "10",
+             "--ddim_spacing", "leading", "--device", "cuda"]
+# the batch sizes K1 takes on the eval path: evaluate.py's --n_runs 5
+# (consistency, precision, action consistency), one sample (robustness,
+# compare, smoke) and accuracy's 64-window chunks
+EVAL_BATCHES = (1, 5, 64)
+# the O(1) car_state warm start against the replay warm start, world units
+# (tests/test_eval.py's bound for JAX)
+WARM_TOL = 5e-3
 # r5blend's recipe (artifacts/r5blend_best/hparams.yaml)
 RECIPE = ["--batch_size", "256", "--lr", "4e-4", "--lr_schedule", "cosine",
           "--min_lr", "1e-6", "--ema_decay", "0.9995", "--device_data",
@@ -1286,39 +1297,235 @@ def attention_bwd_ms(cuda_ops, device):
     return total
 
 
-def collect_card_data(policy, params, stats, seed, device):
-    """r5blend drives DATA_ENVS envs on the 4-track bank for DATA_FRAMES
-    frames under amp (K1 and K2), and each env becomes an episode as the
-    JAX package records one: the pre-step position and velocity, the action
-    applied and the post-step frame (uint8, which the dataset scales by
-    1/255). The reset's frame has no step, so an episode keeps frames 1..N-1
-    with the poses of frames 0..N-2."""
-    from state_policy_diffusionmodel_torch import diffusion
-    from state_policy_diffusionmodel_torch.data import ReplayBuffer
+def lane_probe(bank, device):
+    """The collection's lane-follower drive, stepped here through the
+    public env and controller API with what collect_episodes keeps to
+    itself read on the way: (actions (B, COLLECT_STEPS, 3), the share of
+    steps that found the lane, tile counts after the first step and at
+    the end)."""
+    from state_policy_diffusionmodel_torch import control
+    from state_policy_diffusionmodel_torch.control.drivers import lane_column
     from state_policy_diffusionmodel_torch.envs import vector
+    from state_policy_diffusionmodel_torch.physics.car import sqrt
+
+    ids = torch.arange(DATA_ENVS, dtype=torch.int32, device=device)
+    states, res = vector.reset_batch(bank, track_ids=ids, device=device)
+    params = control.lane_follow_params("middle", 30.0, device)
+    ctrl = control.lane_follow_init(DATA_ENVS, device)
+    found, actions = [], []
+    for i in range(COLLECT_STEPS):
+        v = res.info.car_velocity
+        speed = sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1])
+        found.append(lane_column(res.augmented, params.mode)[1])
+        a, ctrl = control.lane_follow(params, ctrl, res.augmented, speed)
+        actions.append(a)
+        states, res = vector.step_batch(states, bank, a, track_ids=ids,
+                                        device=device)
+        if i == 0:
+            first = states.tile_count.clone()
+    return (torch.stack(actions, 1).cpu().numpy(),
+            torch.stack(found).float().mean().item(), first.tolist(),
+            states.tile_count.tolist())
+
+
+def collect_phase(device, work, counts):
+    """The collection path on the card: the lane follower on the 16-track
+    bank (K2 each step), timed as it runs, then driven once more by
+    lane_probe for what the collection does not return (the found share,
+    the tile counts), its actions equal to the collected ones; the centre
+    follower and the sinusoidal weaver for SHORT_STEPS steps each; the lane
+    follower's episodes written through ZarrReplayBuffer (zlib) into
+    work/card.zarr and read back through load_zarr. Returns (the store's
+    path, readings)."""
+    from state_policy_diffusionmodel_torch.data import (
+        ZarrReplayBuffer, collect_episodes, load_zarr,
+    )
     from state_policy_diffusionmodel_torch.track import load_or_build_bank
 
-    bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=device)
-    ids = torch.arange(DATA_ENVS, dtype=torch.int32,
-                       device=device) % LOOP_TRACKS
-    fn = diffusion.make_ring_policy(policy, stats, sampler="ddim",
-                                    num_inference_steps=10, amp=True,
-                                    seed=seed)
-    _, _, out = vector.rollout_policy(
-        bank, diffusion.env_policy(fn, params),
-        diffusion.init_ring_carry(policy, DATA_ENVS), DATA_FRAMES,
-        auto_reset=False, track_ids=ids, device=device,
-        keep_trajectory=True)
-    tr = out.trajectory
-    host = lambda t: t.cpu().numpy()
-    obs, pos = host(tr.obs), host(tr.info.car_position)
-    vel, act = host(tr.info.car_velocity), host(out.actions)
-    buf = ReplayBuffer()
-    for b in range(DATA_ENVS):
-        buf.add_episode({"img": obs[1:, b], "position": pos[:-1, b],
-                         "velocity": vel[:-1, b], "action": act[1:, b]})
-    buf.meta["track_id"] = host(ids).astype(np.int64)
-    return buf
+    zero_counts, read_counts = counts
+    bank = load_or_build_bank(DATA_ENVS, bake=True, device=device)
+    torch.cuda.synchronize()
+    # the collection path: counts to 0 just before, read just after
+    zero_counts()
+    t0 = time.perf_counter()
+    eps = collect_episodes(DATA_SEEDS, driver="lane_follow", mode="middle",
+                           target_velocity=30.0, n_steps=COLLECT_STEPS,
+                           geoms=bank, return_states=True, device=device)
+    secs = time.perf_counter() - t0
+    n = read_counts()
+    actions, share, first, last = lane_probe(bank, device)
+    steps_per_s = DATA_ENVS * COLLECT_STEPS / secs
+    print(f"  lane_follow (middle, 30): {DATA_ENVS} envs x {COLLECT_STEPS} "
+          f"steps in {secs:.2f} s = {steps_per_s:.1f} env steps/s; launches "
+          f"{n}; lane found on {share:.4f} of the steps; tiles after the "
+          f"first step {first}, at the end {last}", flush=True)
+    if n != {"K1": 0, "K2": COLLECT_STEPS + 1, "K3": 0, "K4": 0, "K5": 0,
+             "K6": 0}:
+        raise Failed(f"collection launched {n}: expected one K2 launch a "
+                     f"step and the reset's ({COLLECT_STEPS + 1}), nothing "
+                     "else")
+    if not np.array_equal(actions, np.stack([ep["action"] for ep in eps])):
+        raise Failed("the probe's lane-follower actions differ from the "
+                     "collected ones")
+    if not all(b > a for a, b in zip(first, last)):
+        raise Failed(f"an episode's tile count did not rise: {first} -> "
+                     f"{last}")
+    bad = [(i, k) for i, ep in enumerate(eps) for k, v in ep.items()
+           if not np.isfinite(v).all()]
+    if bad:
+        raise Failed(f"non-finite collected records {bad}")
+    out = dict(seconds=secs, steps=COLLECT_STEPS, envs=DATA_ENVS,
+               env_steps_per_s=steps_per_s, launches=n, lane_found=share,
+               tiles_first=first, tiles_last=last)
+
+    for driver in ("center_follow", "sinusoidal"):
+        t0 = time.perf_counter()
+        short = collect_episodes(DATA_SEEDS, driver=driver,
+                                 n_steps=SHORT_STEPS, geoms=bank,
+                                 device=device)
+        dt = time.perf_counter() - t0
+        a = np.stack([ep["action"] for ep in short])
+        print(f"  {driver}: {DATA_ENVS} envs x {SHORT_STEPS} steps in "
+              f"{dt:.2f} s, actions {a.shape}, mean |a| "
+              f"{np.abs(a).mean(axis=(0, 1)).round(4).tolist()}", flush=True)
+        if a.shape != (DATA_ENVS, SHORT_STEPS, 3) or \
+                not np.isfinite(a).all():
+            raise Failed(f"{driver}: actions {a.shape}, or not finite")
+        out[driver] = dict(seconds=dt, steps=SHORT_STEPS)
+
+    t0 = time.perf_counter()
+    store = os.path.join(work, "card.zarr")
+    z = ZarrReplayBuffer.create_empty_zarr(store)
+    for ep in eps:
+        z.add_episode(ep)
+    z.meta["track_seed"] = np.asarray(DATA_SEEDS, np.int64)
+    z.save_meta()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_zarr(store)
+    read_s = time.perf_counter() - t0
+    for k in eps[0]:
+        if not np.array_equal(back.data[k],
+                              np.concatenate([ep[k] for ep in eps])):
+            raise Failed(f"data/{k} read back differs from the episodes")
+    if not (np.array_equal(back.episode_ends, np.arange(1, DATA_ENVS + 1)
+                           * COLLECT_STEPS)
+            and np.array_equal(back.meta["track_seed"], DATA_SEEDS)):
+        raise Failed(f"episode ends {back.episode_ends} or track seeds "
+                     f"{back.meta.get('track_seed')} read back wrong")
+    print(f"  {z.n_episodes} episodes, {z.n_steps} frames written through "
+          f"ZarrReplayBuffer (zlib) in {write_s:.2f} s and read back through "
+          f"load_zarr in {read_s:.2f} s: every array equal; keys "
+          f"{sorted(back.data)}", flush=True)
+    out.update(write_seconds=write_s, read_seconds=read_s)
+    return store, out
+
+
+def check_k1_eval_batches(cuda_ops, device):
+    """K1 at the shapes the eval path gives it: r5blend's five (T, C) at
+    each of EVAL_BATCHES, fp32, against its plain version within K1_TOL,
+    twice (bit-identical). Returns the worst error."""
+    gen = torch.Generator(device=device).manual_seed(4321)
+    worst = 0.0
+    for B in EVAL_BATCHES:
+        for T, C in ATTN_SHAPES:
+            q, k, v = (torch.randn((B, T, C), generator=gen, device=device)
+                       for _ in range(3))
+            got = cuda_ops.attention_core_cuda(q, k, v, HEADS)
+            again = cuda_ops.attention_core_cuda(q, k, v, HEADS)
+            want = cuda_ops.attention_core_ref(q, k, v, HEADS)
+            err = (got - want).abs().max().item()
+            tol = K1_TOL[torch.float32]
+            if not err <= tol:
+                raise Failed(f"K1 float32 B={B} T={T} C={C}: max abs err "
+                             f"{err} > {tol}")
+            if not torch.equal(got, again):
+                raise Failed(f"K1 float32 B={B} T={T} C={C}: two runs "
+                             "differ")
+            worst = max(worst, err)
+    print(f"  K1 float32 at the eval's batch sizes {EVAL_BATCHES} x "
+          f"r5blend's {len(ATTN_SHAPES)} shapes: max abs err {worst:.3e} "
+          f"(tol {K1_TOL[torch.float32]:.1e}), repeats equal", flush=True)
+    return worst
+
+
+def eval_phase(device, work, counts, cuda_ops):
+    """r5blend (EMA) through cli/evaluate.py's `all` on the collected store,
+    fp32: each eval's summary and seconds, the K1 launches (and no K2: the
+    replays do not render), accuracy windows/s, every returned array
+    finite; K1 held against its plain version at the eval's batch sizes;
+    then the O(1) car_state warm start against the replay warm start at
+    window 70."""
+    from state_policy_diffusionmodel_torch import eval as E
+    from state_policy_diffusionmodel_torch.cli import evaluate
+    from state_policy_diffusionmodel_torch.data import WindowDataset
+    from state_policy_diffusionmodel_torch.train import load_run
+
+    zero_counts, read_counts = counts
+    torch.cuda.synchronize()
+    # the eval path: counts to 0 just before, read just after
+    zero_counts()
+    t0 = time.perf_counter()
+    res = evaluate.main(EVAL_ARGS + ["--dataset_dir", work])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = read_counts()
+    seconds = {name: r["seconds"] for name, r in res.items()}
+    acc = res["accuracy"]
+    wps = len(acc["per_window_error"]) / seconds["accuracy"]
+    print(f"  evaluate all in {secs:.2f} s; launches {n}; seconds an eval "
+          f"{ {k: round(v, 3) for k, v in seconds.items()} }; accuracy "
+          f"{len(acc['per_window_error'])} windows at {wps:.1f} windows/s, "
+          f"overall {acc['overall']:.4f}, action overall "
+          f"{acc['action_overall']:.4f}", flush=True)
+    if not n["K1"] or any(n[k] for k in ("K2", "K3", "K4", "K5", "K6")):
+        raise Failed(f"evaluate launched {n}: expected K1 and nothing else")
+    if len(acc["per_window_error"]) != 256:
+        raise Failed(f"accuracy swept {len(acc['per_window_error'])} "
+                     "windows, not 256")
+
+    def arrays(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                yield from arrays(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                yield from arrays(v)
+        elif isinstance(x, (np.ndarray, float, np.floating)):
+            yield np.asarray(x)
+
+    bad = [name for name, r in res.items()
+           if not all(np.isfinite(a).all() for a in arrays(r))]
+    if bad:
+        raise Failed(f"evals {bad} returned non-finite values")
+    k1_err = check_k1_eval_batches(cuda_ops, device)
+
+    policy, params, stats = load_run(RUN_DIR, device, ema=True)
+    cfg = policy.config
+    ds = WindowDataset(os.path.join(work, "card.zarr"), cfg.obs_horizon,
+                       cfg.pred_horizon, cfg.step_size, stats=stats)
+    plain = copy.copy(ds)
+    plain.car_state = None
+    warm = {}
+    for tag, d in (("o1", ds), ("replay", plain)):
+        ctx = E.EvalContext(policy=policy, params=params, dataset=d)
+        start = ctx.window(70)[2]
+        t0 = time.perf_counter()
+        _, st, _, n_warm = ctx.warmed_state(start)
+        warm[tag] = (st, time.perf_counter() - t0, n_warm)
+    gap = max((warm["o1"][0].car.pos - warm["replay"][0].car.pos).abs().max()
+              .item(), (warm["o1"][0].car.vel - warm["replay"][0].car.vel)
+              .abs().max().item())
+    print(f"  window 70 warm start ({warm['o1'][2]} frames): O(1) car_state "
+          f"restore in {warm['o1'][1]:.3f} s, replay in "
+          f"{warm['replay'][1]:.3f} s; position and velocity apart by "
+          f"{gap:.3e} (tol {WARM_TOL})", flush=True)
+    if not gap <= WARM_TOL:
+        raise Failed(f"the O(1) warm start is {gap} from the replay's")
+    return dict(seconds=secs, eval_seconds=seconds, launches=n,
+                accuracy_windows_per_s=wps, accuracy_windows=256,
+                overall=acc["overall"], action_overall=acc["action_overall"],
+                warm_start_gap=gap, k1_eval_batches_err=k1_err)
 
 
 def unet_grads(policy, params, batch, t, noise, amp=False):
@@ -1359,201 +1566,182 @@ def rel_l2(got, want):
     return (num / den).sqrt().item()
 
 
-def train_phases(args, device, cuda_ops, policy, params, stats, counts):
-    """The training slice's phases: data from the card, gradients on the
-    card on every kernel path, one epoch through the CLI, a closed loop
-    served from the run it wrote, and train-step times. Everything is
-    written under a temporary directory, removed at the end."""
+def train_phases(args, device, cuda_ops, policy, params, stats, counts,
+                 work):
+    """The training slice's phases on the PID-collected store work/card.zarr:
+    its windows, gradients on the card on every kernel path, one epoch
+    through the CLI, a closed loop served from the run it wrote, and
+    train-step times. The run is written under `work`."""
     from state_policy_diffusionmodel_torch import diffusion
     from state_policy_diffusionmodel_torch.cli import train_policy
     from state_policy_diffusionmodel_torch.data import (
-        DeviceWindowDataset, WindowDataset, save_zarr,
+        DeviceWindowDataset, WindowDataset,
     )
     from state_policy_diffusionmodel_torch.envs import vector
     from state_policy_diffusionmodel_torch.track import load_or_build_bank
     from state_policy_diffusionmodel_torch.train import load_run
 
     zero_counts, read_counts = counts
-    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     out = {}
-    try:
-        with phase("data from the card"):
-            # the collection path: counts to 0 just before, read after
-            zero_counts()
-            t0 = time.perf_counter()
-            buf = collect_card_data(policy, params, stats, args.seed, device)
-            secs = time.perf_counter() - t0
-            n = read_counts()
-            t0 = time.perf_counter()
-            store = os.path.join(work, "card.zarr")
-            save_zarr(buf, store)
-            ds = WindowDataset(store, 10, 30, 5)
-            io_s = time.perf_counter() - t0
-            bad = [k for k, v in buf.data.items()
-                   if not np.isfinite(v.astype(np.float32)).all()]
-            n_img = buf.data["img"].shape
-            print(f"  {DATA_ENVS} envs x {DATA_FRAMES} frames (amp) in "
-                  f"{secs:.2f} s; launches {n}; {buf.n_episodes} episodes, "
-                  f"frames {n_img}; zarr (zlib) written and read back in "
-                  f"{io_s:.2f} s: {len(ds)} windows")
-            want = {"K1": 5 * 10 * (DATA_FRAMES // 5), "K2": DATA_FRAMES + 1}
-            if bad or any(n[k] != v for k, v in want.items()):
-                raise Failed(f"data collection: non-finite {bad}, launches "
-                             f"{n}, expected {want}")
-            if len(ds) != DATA_ENVS * (DATA_FRAMES - 1 - 40 * 5 + 1):
-                raise Failed(f"{len(ds)} windows from the card's data")
-            out["data"] = dict(seconds=secs, io_seconds=io_s,
-                               windows=len(ds), launches=n,
-                               episodes=buf.n_episodes)
+    with phase("windows of the collected data"):
+        t0 = time.perf_counter()
+        ds = WindowDataset(os.path.join(work, "card.zarr"), 10, 30, 5)
+        io_s = time.perf_counter() - t0
+        want = DATA_ENVS * (COLLECT_STEPS - 40 * 5 + 1)
+        print(f"  WindowDataset over the lane follower's {DATA_ENVS} "
+              f"episodes of {COLLECT_STEPS} frames: {len(ds)} windows "
+              f"(want {want}), read in {io_s:.2f} s")
+        if len(ds) != want:
+            raise Failed(f"{len(ds)} windows from the card's data")
+        out["data"] = dict(io_seconds=io_s, windows=len(ds),
+                           episodes=DATA_ENVS)
 
-        with phase("gradients on the card"):
-            twin = DeviceWindowDataset(ds, device)
-            idx = np.random.default_rng(args.seed).permutation(
-                len(ds))[:N_ENVS]
-            batch = twin.batch(idx, image_frames=10)
-            gen = torch.Generator(device=device).manual_seed(args.seed + 3)
-            t = torch.randint(0, 1000, (N_ENVS,), generator=gen,
-                              device=device)
-            noise = torch.randn((N_ENVS, 31, 5), generator=gen,
-                                device=device)
-            plain_attn = lambda q, k, v, num_heads=1: \
-                cuda_ops.AttentionCore.apply(cuda_ops.attention_core_ref,
-                                             num_heads, q, k, v)
-            ref = {}
-            with conv_paths(cuda_ops, "xla9", "", plain_attn):
-                for amp in (False, True):
+    with phase("gradients on the card"):
+        twin = DeviceWindowDataset(ds, device)
+        idx = np.random.default_rng(args.seed).permutation(
+            len(ds))[:N_ENVS]
+        batch = twin.batch(idx, image_frames=10)
+        gen = torch.Generator(device=device).manual_seed(args.seed + 3)
+        t = torch.randint(0, 1000, (N_ENVS,), generator=gen,
+                          device=device)
+        noise = torch.randn((N_ENVS, 31, 5), generator=gen,
+                            device=device)
+        plain_attn = lambda q, k, v, num_heads=1: \
+            cuda_ops.AttentionCore.apply(cuda_ops.attention_core_ref,
+                                         num_heads, q, k, v)
+        ref = {}
+        with conv_paths(cuda_ops, "xla9", "", plain_attn):
+            for amp in (False, True):
+                zero_counts()
+                ref[amp] = unet_grads(policy, params, batch, t, noise,
+                                      amp)
+                if any(read_counts().values()):
+                    raise Failed(f"the plain path launched "
+                                 f"{read_counts()}")
+        plain_gap = rel_l2(ref[True][1], ref[False][1])
+        print(f"  all-plain path: loss fp32 {ref[False][0].item():.6f}, "
+              f"amp {ref[True][0].item():.6f}; amp gradient vs fp32: "
+              f"relative L2 {plain_gap:.3e}")
+        grads = {}
+        for name, (cp, cb) in TRAIN_PATHS.items():
+            grads[name] = {}
+            want = {"K1": 5, "K2": 0, "K3": 30 * (cp == "pallas"),
+                    "K4": 30 * (cp == "pallas"),
+                    "K5": 15 * (cp == "pallas"),
+                    "K6": 31 * (cb == "pallas")}
+            for amp in (False, True):
+                tag = "amp" if amp else "fp32"
+                with conv_paths(cuda_ops, cp, cb):
+                    # one loss and backward: counts to 0, read after
                     zero_counts()
-                    ref[amp] = unet_grads(policy, params, batch, t, noise,
-                                          amp)
-                    if any(read_counts().values()):
-                        raise Failed(f"the plain path launched "
-                                     f"{read_counts()}")
-            plain_gap = rel_l2(ref[True][1], ref[False][1])
-            print(f"  all-plain path: loss fp32 {ref[False][0].item():.6f}, "
-                  f"amp {ref[True][0].item():.6f}; amp gradient vs fp32: "
-                  f"relative L2 {plain_gap:.3e}")
-            grads = {}
-            for name, (cp, cb) in TRAIN_PATHS.items():
-                grads[name] = {}
-                want = {"K1": 5, "K2": 0, "K3": 30 * (cp == "pallas"),
-                        "K4": 30 * (cp == "pallas"),
-                        "K5": 15 * (cp == "pallas"),
-                        "K6": 31 * (cb == "pallas")}
-                for amp in (False, True):
-                    tag = "amp" if amp else "fp32"
-                    with conv_paths(cuda_ops, cp, cb):
-                        # one loss and backward: counts to 0, read after
-                        zero_counts()
-                        loss, g = unet_grads(policy, params, batch, t,
-                                             noise, amp)
-                        torch.cuda.synchronize()
-                        n = read_counts()
-                    rec = dict(loss=loss.item(), launches=n)
-                    gap = rel_l2(g, ref[False][1])
-                    rec["rel_l2_vs_fp32_plain"] = gap
-                    if amp:
-                        rec["limit"] = AMP_GRAD_FACTOR * plain_gap
-                        ok = gap <= rec["limit"]
-                    else:
-                        worst, worst_zero, zeros = grad_gap(g, ref[False][1])
-                        rec.update(max_rel_err=worst,
-                                   zero_tensors_max=worst_zero,
-                                   zero_tensors=len(zeros))
-                        ok = worst <= GRAD_TOL and worst_zero <= GRAD_ZERO
-                    grads[name][tag] = rec
-                    print(f"  {name:9s} {tag}: {fmt(rec)}", flush=True)
-                    if n != want:
-                        raise Failed(f"gradients, {name} {tag}: launches "
-                                     f"{n}, expected {want}")
-                    if not (ok and np.isfinite(rec["loss"])):
-                        raise Failed(f"gradients, {name} {tag}: {rec}")
-            params["unet"].zero_grad(set_to_none=True)
-            out["gradients"] = grads
+                    loss, g = unet_grads(policy, params, batch, t,
+                                         noise, amp)
+                    torch.cuda.synchronize()
+                    n = read_counts()
+                rec = dict(loss=loss.item(), launches=n)
+                gap = rel_l2(g, ref[False][1])
+                rec["rel_l2_vs_fp32_plain"] = gap
+                if amp:
+                    rec["limit"] = AMP_GRAD_FACTOR * plain_gap
+                    ok = gap <= rec["limit"]
+                else:
+                    worst, worst_zero, zeros = grad_gap(g, ref[False][1])
+                    rec.update(max_rel_err=worst,
+                               zero_tensors_max=worst_zero,
+                               zero_tensors=len(zeros))
+                    ok = worst <= GRAD_TOL and worst_zero <= GRAD_ZERO
+                grads[name][tag] = rec
+                print(f"  {name:9s} {tag}: {fmt(rec)}", flush=True)
+                if n != want:
+                    raise Failed(f"gradients, {name} {tag}: launches "
+                                 f"{n}, expected {want}")
+                if not (ok and np.isfinite(rec["loss"])):
+                    raise Failed(f"gradients, {name} {tag}: {rec}")
+        params["unet"].zero_grad(set_to_none=True)
+        out["gradients"] = grads
 
-        run = os.path.join(work, "runs", "r5blend_recipe")
-        with phase("training through the CLI"):
-            # the main path: counts to 0 just before, read just after
-            zero_counts()
-            t0 = time.perf_counter()
-            res = train_policy.main([
-                "--dataset_dir", work, "--dataset_name", "card.zarr",
-                "--out_dir", os.path.join(work, "runs"),
-                "--version", "r5blend_recipe", "--encoder_ckpt", RUN_DIR,
-                "--seed", "42"] + RECIPE)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            n = read_counts()
-            with open(os.path.join(run, "metrics.jsonl")) as f:
-                events = [json.loads(line) for line in f]
-            losses = [e[k] for e in events for k in ("loss", "val_loss",
-                                                     "train_loss") if k in e]
-            missing = [p for p in ("checkpoints/epoch=0/params.npz",
-                                   "checkpoints_ema/epoch=0/params.npz",
-                                   "STATS.pkl", "hparams.yaml",
-                                   "metrics.jsonl",
-                                   "trainer_state/opt/params.npz")
-                       if not os.path.exists(os.path.join(run, p))]
-            epoch = next(e for e in events if e["event"] == "epoch")
-            print(f"  one epoch, r5blend's recipe, {res['step']} steps of "
-                  f"{N_ENVS} in {secs:.2f} s (the epoch {epoch['seconds']:.2f}"
-                  f" s, {epoch['samples_per_sec']:.1f} samples/s); train "
-                  f"loss {res['history']['train_loss']}, val "
-                  f"{res['history']['val_loss']}; launches {n}")
-            if missing or not losses or not all(np.isfinite(losses)):
-                raise Failed(f"CLI training: missing {missing}, losses "
-                             f"{losses}")
-            if not n["K1"] or any(n[k] for k in ("K2", "K3", "K4", "K5",
-                                                 "K6")):
-                raise Failed(f"CLI training on the default paths launched "
-                             f"{n}")
-            out["cli"] = dict(seconds=secs, steps=res["step"],
-                              history=res["history"], launches=n,
-                              epoch_seconds=epoch["seconds"],
-                              samples_per_s=epoch["samples_per_sec"])
+    run = os.path.join(work, "runs", "r5blend_recipe")
+    with phase("training through the CLI"):
+        # the main path: counts to 0 just before, read just after
+        zero_counts()
+        t0 = time.perf_counter()
+        res = train_policy.main([
+            "--dataset_dir", work, "--dataset_name", "card.zarr",
+            "--out_dir", os.path.join(work, "runs"),
+            "--version", "r5blend_recipe", "--encoder_ckpt", RUN_DIR,
+            "--seed", "42"] + RECIPE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = read_counts()
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        losses = [e[k] for e in events for k in ("loss", "val_loss",
+                                                 "train_loss") if k in e]
+        missing = [p for p in ("checkpoints/epoch=0/params.npz",
+                               "checkpoints_ema/epoch=0/params.npz",
+                               "STATS.pkl", "hparams.yaml",
+                               "metrics.jsonl",
+                               "trainer_state/opt/params.npz")
+                   if not os.path.exists(os.path.join(run, p))]
+        epoch = next(e for e in events if e["event"] == "epoch")
+        print(f"  one epoch, r5blend's recipe, {res['step']} steps of "
+              f"{N_ENVS} in {secs:.2f} s (the epoch {epoch['seconds']:.2f}"
+              f" s, {epoch['samples_per_sec']:.1f} samples/s); train "
+              f"loss {res['history']['train_loss']}, val "
+              f"{res['history']['val_loss']}; launches {n}")
+        if missing or not losses or not all(np.isfinite(losses)):
+            raise Failed(f"CLI training: missing {missing}, losses "
+                         f"{losses}")
+        if not n["K1"] or any(n[k] for k in ("K2", "K3", "K4", "K5",
+                                             "K6")):
+            raise Failed(f"CLI training on the default paths launched "
+                         f"{n}")
+        out["cli"] = dict(seconds=secs, steps=res["step"],
+                          history=res["history"], launches=n,
+                          epoch_seconds=epoch["seconds"],
+                          samples_per_s=epoch["samples_per_sec"])
 
-        with phase("serve the trained run"):
-            tpol, tparams, tstats = load_run(run, device, ema=True)
-            bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=device)
-            ids = torch.arange(DATA_ENVS, dtype=torch.int32,
-                               device=device) % LOOP_TRACKS
-            fn = diffusion.make_ring_policy(tpol, tstats, sampler="ddim",
-                                            num_inference_steps=10,
-                                            seed=args.seed)
-            _, _, served = vector.rollout_policy(
-                bank, diffusion.env_policy(fn, tparams),
-                diffusion.init_ring_carry(tpol, DATA_ENVS), 10,
-                auto_reset=False, track_ids=ids, device=device)
-            a = served.actions
-            print(f"  the EMA checkpoint serves {DATA_ENVS} envs x 10 "
-                  f"frames: actions {tuple(a.shape)}, mean |a| "
-                  f"{a.abs().mean().item():.4f}")
-            if tuple(a.shape) != (10, DATA_ENVS, 3) or not bool(
-                    torch.isfinite(a).all()):
-                raise Failed(f"the trained run serves actions "
-                             f"{tuple(a.shape)}, or not finite")
-            out["served"] = dict(frames=10, envs=DATA_ENVS,
-                                 mean_abs_action=a.abs().mean().item())
+    with phase("serve the trained run"):
+        tpol, tparams, tstats = load_run(run, device, ema=True)
+        bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=device)
+        ids = torch.arange(DATA_ENVS, dtype=torch.int32,
+                           device=device) % LOOP_TRACKS
+        fn = diffusion.make_ring_policy(tpol, tstats, sampler="ddim",
+                                        num_inference_steps=10,
+                                        seed=args.seed)
+        _, _, served = vector.rollout_policy(
+            bank, diffusion.env_policy(fn, tparams),
+            diffusion.init_ring_carry(tpol, DATA_ENVS), 10,
+            auto_reset=False, track_ids=ids, device=device)
+        a = served.actions
+        print(f"  the EMA checkpoint serves {DATA_ENVS} envs x 10 "
+              f"frames: actions {tuple(a.shape)}, mean |a| "
+              f"{a.abs().mean().item():.4f}")
+        if tuple(a.shape) != (10, DATA_ENVS, 3) or not bool(
+                torch.isfinite(a).all()):
+            raise Failed(f"the trained run serves actions "
+                         f"{tuple(a.shape)}, or not finite")
+        out["served"] = dict(frames=10, envs=DATA_ENVS,
+                             mean_abs_action=a.abs().mean().item())
 
-        with phase("train-step timing"):
-            steps = {}
-            for name, (cp, cb) in TRAIN_PATHS.items():
-                steps[name] = {}
-                for amp in (False, True):
-                    tag = "amp" if amp else "fp32"
-                    with conv_paths(cuda_ops, cp, cb):
-                        rec = time_train_steps(policy, params, twin,
-                                               args.seed, amp, device,
-                                               counts)
-                    steps[name][tag] = rec
-                    print(f"  {name:9s} {tag}: {rec['ms']:.2f} ms a step "
-                          f"(median of {TIMED_STEPS}: "
-                          f"{[round(v, 2) for v in rec['ms_each']]}), "
-                          f"{rec['samples_per_s']:.1f} samples/s, peak "
-                          f"{rec['peak_gib']:.2f} GiB; launches a step "
-                          f"{rec['launches_per_step']}", flush=True)
-            out["step_ms"] = steps
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    with phase("train-step timing"):
+        steps = {}
+        for name, (cp, cb) in TRAIN_PATHS.items():
+            steps[name] = {}
+            for amp in (False, True):
+                tag = "amp" if amp else "fp32"
+                with conv_paths(cuda_ops, cp, cb):
+                    rec = time_train_steps(policy, params, twin,
+                                           args.seed, amp, device,
+                                           counts)
+                steps[name][tag] = rec
+                print(f"  {name:9s} {tag}: {rec['ms']:.2f} ms a step "
+                      f"(median of {TIMED_STEPS}: "
+                      f"{[round(v, 2) for v in rec['ms_each']]}), "
+                      f"{rec['samples_per_s']:.1f} samples/s, peak "
+                      f"{rec['peak_gib']:.2f} GiB; launches a step "
+                      f"{rec['launches_per_step']}", flush=True)
+        out["step_ms"] = steps
     return out
 
 
@@ -2071,8 +2259,17 @@ def main() -> int:
         if not d <= ACTION_TOL:
             raise Failed(f"card and cpu actions differ by {d}")
 
-    training = train_phases(args, device, cuda_ops, policy, params, stats,
-                            (zero_counts, read_counts))
+    counts = (zero_counts, read_counts)
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        with phase("collect"):
+            _, collected = collect_phase(device, work, counts)
+        training = train_phases(args, device, cuda_ops, policy, params, stats,
+                                counts, work)
+        with phase("eval"):
+            evaluated = eval_phase(device, work, counts, cuda_ops)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     fp32 = [r for r in k1 if r["dtype"] == "float32" and r["r5blend"]]
     # the five calls are separate launches: the forward's bound is the sum
@@ -2087,8 +2284,9 @@ def main() -> int:
         "source": "state_policy_diffusionmodel_torch/csrc/attention_core.cu",
         "replaces": "state_policy_diffusionmodel_tpu/models/pallas_ops.py:611",
         # the closed loop's fp32 run (the observation-fed rollout reads
-        # the same 500)
+        # the same 500); the eval phase's beside it
         "launches": loop["fp32"]["k1_launches"],
+        "launches_eval": evaluated["launches"]["K1"],
         # one U-Net forward's five calls at B=256, fp32 (the main path)
         "max_abs_err": max(r["max_abs_err"] for r in fp32),
         "max_abs_err_on_policy": runs["fp32"]["k1_on_policy"]["max_abs_err"],
@@ -2122,9 +2320,9 @@ def main() -> int:
                     ":137",
         "launches": loop["fp32"]["k2_launches"],
         "launches_env_render": envs_run["env_render"]["k2_launches"],
+        "launches_collect": collected["launches"]["K2"],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2_main["ms"],
-        "prev_ms": k2_main["prev_ms"],
         "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"],
         "bound_by": k2_main["bound_by"],
@@ -2153,7 +2351,8 @@ def main() -> int:
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
         "bf16": step_bf16, "ptxas": k6_ptxas, "per_shape": k6})
     print(json.dumps({"kernels": kernels, "policy": runs, "env": envs_run,
-                      "closed_loop": loop, "training": training}))
+                      "closed_loop": loop, "collect": collected,
+                      "training": training, "eval": evaluated}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

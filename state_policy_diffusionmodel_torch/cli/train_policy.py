@@ -1,22 +1,24 @@
 """Diffusion policy training CLI, PyTorch.
 
     python -m state_policy_diffusionmodel_torch.cli.train_policy \
-        --dataset_dir DIR --dataset_name NAME --no_sample_viz [...]
+        --dataset_dir DIR --dataset_name NAME [...]
 
 Counterpart of the JAX package's `cli/train_policy.py`, with its flags and
 defaults, plus `--device` (default cuda; cpu runs the plain PyTorch path).
 The dataset is a zarr store of the port's reader (uncompressed or zlib; a
 blosc store raises). `--encoder_ckpt` takes an autoencoder run directory
 or one of its `checkpoints/epoch=K` directories and reads the encoder from
-its params.npz. Flags whose modules are not ported raise
-NotImplementedError and name their ROADMAP.md item: --tensorboard,
---profile_dir, the validation sample figures (so --no_sample_viz is
-required), --vision_encoder resnet18 and --model UNet.
+its params.npz. The validation sample figures (`train/sample_viz.py`) are
+on unless `--no_sample_viz`; they need matplotlib, and where it is missing
+(the GPU machine) the CLI raises and names the flag. Flags whose modules
+are not ported raise NotImplementedError and name their ROADMAP.md item:
+--tensorboard, --profile_dir, --vision_encoder resnet18 and --model UNet.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 from datetime import datetime
 
@@ -76,8 +78,8 @@ def parse_arguments(argv=None):
                         "(requires --version of an existing run)")
     p.add_argument("--profile_dir", default=None, help="not ported")
     p.add_argument("--no_sample_viz", action="store_true",
-                   help="skip the validation-time sample figures (required: "
-                        "they are not ported)")
+                   help="skip the validation-time sample figures "
+                        "(needed where matplotlib is missing)")
     p.add_argument("--sample_viz_steps", type=int, default=50)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the default) or cpu")
@@ -93,11 +95,12 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--profile_dir: use tools/profile_torch_policy.py --what "
             "train_step (ROADMAP.md Queue 1)")
-    if not args.no_sample_viz:
-        raise NotImplementedError(
-            "the validation sample figures (train/sample_viz.py) are not "
-            "ported (ROADMAP.md Queue 1), and the GPU machine has no "
-            "matplotlib: pass --no_sample_viz")
+    if not args.no_sample_viz and importlib.util.find_spec(
+            "matplotlib") is None:
+        raise RuntimeError(
+            "the validation sample figures (on unless --no_sample_viz) "
+            "need matplotlib, which is not installed here: pass "
+            "--no_sample_viz")
     if args.vision_encoder == "resnet18":
         raise NotImplementedError(
             "--vision_encoder resnet18: ResNet18GN is not ported (ROADMAP.md "
@@ -172,7 +175,15 @@ def main(argv=None):
         print(f"loaded pretrained encoder from {path}")
 
     trainer = train.Trainer(policy, tcfg, out_dir)
-    result = trainer.fit(dm, params=params, resume=args.resume)
+    sample_hook = None
+    if not args.no_sample_viz:
+        # the reference's quarter-epoch visual feedback: full reverse
+        # diffusion on a fixed validation window, position and action
+        # overlay figures (diffusion_ddpm.py:100-113,351-422)
+        sample_hook = train.make_sample_hook(
+            policy, dm, out_dir, num_inference_steps=args.sample_viz_steps)
+    result = trainer.fit(dm, params=params, resume=args.resume,
+                         sample_hook=sample_hook)
     print(f"done; final lr {result['lr']}, artifacts in {out_dir}")
     return result
 

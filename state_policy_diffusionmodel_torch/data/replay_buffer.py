@@ -12,12 +12,19 @@ The JAX package writes through tensorstore with blosc by default. This
 module has no blosc codec (and the GPU machine has no tensorstore, zarr or
 numcodecs): it reads and writes arrays without a compressor or with
 `zlib`, and a blosc store raises and names its codec. It writes `zlib`
-(level 1) by default, which the JAX package's tensorstore also reads. The
-live `ZarrReplayBuffer` is not ported yet.
+(level 1) by default, which the JAX package's tensorstore also reads.
+
+`ZarrReplayBuffer` is the live on-disk store (the JAX package's, there
+through tensorstore's resizable zarr driver): episodes append straight to
+disk as a resize of each array's `.zarray` shape and a write of the chunks
+the episode touches (a chunk that straddles two episodes is read, filled
+and rewritten whole), and reads load only the chunks they touch. Where the
+JAX store's default compressor is blosc-zstd, this one writes zlib.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -259,7 +266,7 @@ class _ZipStore:
                        if n.startswith(base) and len(n) > len(base)})
 
 
-def _read_array(store, key: str) -> np.ndarray:
+def _array_meta(store, key: str) -> dict:
     raw = store.read(f"{key}/.zarray")
     if raw is None:
         raise FileNotFoundError(f"no zarr array at {key}")
@@ -269,23 +276,43 @@ def _read_array(store, key: str) -> np.ndarray:
         raise ValueError(f"{key}: only C-order zarr v2 arrays without "
                          f"filters are read, got {meta}")
     _check_codec(meta["compressor"], key)
+    return meta
+
+
+def _read_array(store, key: str, rows: Optional[tuple] = None,
+                meta: Optional[dict] = None) -> np.ndarray:
+    """The array at `key`, or its rows [start, stop) along axis 0 (only the
+    chunks holding them are read)."""
+    meta = meta or _array_meta(store, key)
     shape, chunks = tuple(meta["shape"]), tuple(meta["chunks"])
     dtype = np.dtype(meta["dtype"])
     sep = meta.get("dimension_separator", ".")
     fill = meta.get("fill_value") or 0
-    out = np.empty(shape, dtype)
+    lo, hi = (0, shape[0] if shape else 0) if rows is None else (
+        max(0, rows[0]), min(rows[1], shape[0]))
+    hi = max(lo, hi)
+    out = np.empty(((hi - lo,) + shape[1:]) if shape else (), dtype)
     grid = [max(1, -(-s // c)) if s else 0 for s, c in zip(shape, chunks)]
-    for idx in np.ndindex(*grid):
+    if shape:
+        grid[0] = range(lo // chunks[0], -(-hi // chunks[0]))
+    for idx in itertools.product(*(g if isinstance(g, range) else range(g)
+                                   for g in grid)):
         name = sep.join(str(i) for i in idx) if idx else "0"
         blob = store.read(f"{key}/{name}")
-        sl = tuple(slice(i * c, min((i + 1) * c, s))
-                   for i, c, s in zip(idx, chunks, shape))
+        sl = [slice(i * c, min((i + 1) * c, s))
+              for i, c, s in zip(idx, chunks, shape)]
+        if sl:                       # clip the chunk's rows to [lo, hi)
+            sl[0] = slice(max(sl[0].start, lo), min(sl[0].stop, hi))
+        src = tuple(slice(s.start - i * c, s.stop - i * c)
+                    for s, i, c in zip(sl, idx, chunks))
+        dst = tuple([slice(sl[0].start - lo, sl[0].stop - lo)] + sl[1:]) \
+            if sl else ()
         if blob is None:            # a chunk never written holds fill_value
-            out[sl] = fill
+            out[dst] = fill
             continue
         block = np.frombuffer(_decode(blob, meta["compressor"]),
                               dtype).reshape(chunks)
-        out[sl] = block[tuple(slice(0, s.stop - s.start) for s in sl)]
+        out[dst] = block[src]
     return out
 
 
@@ -303,3 +330,180 @@ def load_zarr(path: str) -> ReplayBuffer:
     ends = meta.pop("episode_ends")
     return ReplayBuffer(data=data, episode_ends=ends.astype(np.int64),
                         meta=meta)
+
+
+# ---------------------------------------------------------------------------
+# the live on-disk store
+# ---------------------------------------------------------------------------
+
+class _RowsView:
+    """numpy-like lazy view of one on-disk array: `shape`, `dtype`, `len`,
+    row indexing and slicing read only the chunks they touch."""
+
+    def __init__(self, store: _DirStore, key: str):
+        self._store, self._key = store, key
+        self._meta = _array_meta(store, key)
+
+    @property
+    def shape(self):
+        return tuple(self._meta["shape"])
+
+    @property
+    def dtype(self):
+        return np.dtype(self._meta["dtype"])
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice) and idx.step in (None, 1):
+            start, stop, _ = idx.indices(len(self))
+            return _read_array(self._store, self._key, (start, stop),
+                               self._meta)
+        if isinstance(idx, (int, np.integer)):
+            i = range(len(self))[idx]
+            return _read_array(self._store, self._key, (i, i + 1),
+                               self._meta)[0]
+        return np.asarray(self)[idx]
+
+    def __array__(self, dtype=None, copy=None):
+        arr = _read_array(self._store, self._key, meta=self._meta)
+        return arr.astype(dtype) if dtype is not None else arr
+
+
+class ZarrReplayBuffer(ReplayBuffer):
+    """Live zarr-backed episodic store: episodes append straight to disk.
+
+    The reference's zarr backend (`create_empty_zarr` + `add_episode`
+    resize-and-write) for datasets larger than host RAM, as the JAX
+    package's `ZarrReplayBuffer`, in this module's zarr v2 writer: an
+    append rewrites each array's `.zarray` with the new shape and writes
+    the chunks the episode touches; `drop_episode` shrinks the shapes and
+    removes the chunks wholly past the end. An existing store at `path` is
+    reopened, not replaced. `data[k]` is a lazy view; `get_episode` and
+    `get_steps_slice` read only the chunks they need. compressors: None
+    (zlib level 1 for every key) or a per-key dict ({'id': 'zlib',
+    'level': L} or None); `meta/episode_ends` is uncompressed, as the JAX
+    store writes it.
+    """
+
+    def __init__(self, path: str, compressors=None, chunk_length: int = -1):
+        super().__init__()
+        self.path = path
+        self._compressors = compressors
+        self._chunk_length = chunk_length
+        self._dir = _DirStore(path)
+        self._keys: list = []
+        _write_group_meta(path)
+        ends = os.path.join(path, "meta", "episode_ends", ".zarray")
+        if os.path.exists(ends):
+            self.episode_ends = _read_array(
+                self._dir, "meta/episode_ends").astype(np.int64)
+            self._keys = [k for k in self._dir.list("data")
+                          if not k.startswith(".")]
+            self.meta = {k: _read_array(self._dir, f"meta/{k}")
+                         for k in self._dir.list("meta")
+                         if not k.startswith(".") and k != "episode_ends"}
+        else:
+            self._flush_meta()
+        self._refresh()
+
+    @classmethod
+    def create_empty_zarr(cls, path: str, **kw) -> "ZarrReplayBuffer":
+        return cls(path, **kw)
+
+    def _refresh(self) -> None:
+        self.data = {k: _RowsView(self._dir, f"data/{k}") for k in self._keys}
+
+    def _flush_meta(self) -> None:
+        ends = np.asarray(self.episode_ends, np.int64)
+        _write_array(os.path.join(self.path, "meta", "episode_ends"), ends,
+                     max(1, len(ends)), None)
+
+    def _array_dir(self, k: str) -> str:
+        return os.path.join(self.path, "data", k)
+
+    def _set_shape(self, k: str, n_rows: int) -> dict:
+        """Rewrite data/k's .zarray with n_rows along axis 0; its meta."""
+        meta = _array_meta(self._dir, f"data/{k}")
+        meta["shape"] = [n_rows] + meta["shape"][1:]
+        with open(os.path.join(self._array_dir(k), ".zarray"), "w") as f:
+            json.dump(meta, f)
+        return meta
+
+    def add_episode(self, episode: Dict[str, np.ndarray]) -> None:
+        lengths = {k: len(v) for k, v in episode.items()}
+        if len(set(lengths.values())) != 1:
+            raise ValueError(f"episode keys disagree on length: {lengths}")
+        t = next(iter(lengths.values()))
+        if self._keys and set(episode) != set(self._keys):
+            raise ValueError(f"episode keys {set(episode)} != buffer keys "
+                             f"{set(self._keys)}")
+        start = self.n_steps
+        for k, v in episode.items():
+            v = np.ascontiguousarray(v)
+            if k not in self._keys:
+                chunk = (self._chunk_length if self._chunk_length > 0 else
+                         _optimal_chunk_length(v.shape, v.dtype))
+                _write_array(self._array_dir(k), v[:0], chunk,
+                             _resolve_compressor(self._compressors, k))
+                self._keys.append(k)
+            meta = self._set_shape(k, start + t)
+            c = meta["chunks"][0]
+            if tuple(meta["chunks"][1:]) != v.shape[1:] \
+                    or np.dtype(meta["dtype"]) != v.dtype:
+                raise ValueError(f"data/{k}: episode rows {v.shape[1:]} "
+                                 f"{v.dtype} do not match the store's "
+                                 f"{meta['chunks'][1:]} {meta['dtype']}")
+            sep = meta.get("dimension_separator", ".")
+            tail = f"{sep}0" * (v.ndim - 1)
+            for i in range(start // c, -(-(start + t) // c)):
+                lo, hi = i * c, (i + 1) * c
+                block = np.zeros((c,) + v.shape[1:], v.dtype)
+                if lo < start:       # the chunk straddles the last episode
+                    block[:start - lo] = _read_array(
+                        self._dir, f"data/{k}", (lo, start), meta)
+                a, b = max(lo, start), min(hi, start + t)
+                block[a - lo:b - lo] = v[a - start:b - start]
+                name = os.path.join(self._array_dir(k), f"{i}{tail}")
+                os.makedirs(os.path.dirname(name), exist_ok=True)
+                with open(name, "wb") as f:
+                    f.write(_encode(block.tobytes(), meta["compressor"]))
+        self.episode_ends = np.append(self.episode_ends, start + t)
+        self._flush_meta()
+        self._refresh()
+
+    def drop_episode(self) -> None:
+        if self.n_episodes == 0:
+            raise IndexError("empty buffer")
+        start = 0 if self.n_episodes == 1 else int(self.episode_ends[-2])
+        for k in self._keys:
+            meta = self._set_shape(k, start)
+            c = meta["chunks"][0]
+            keep = -(-start // c)
+            for name in os.listdir(self._array_dir(k)):
+                head = name.split(".")[0]
+                if head.isdigit() and int(head) >= keep:
+                    path = os.path.join(self._array_dir(k), name)
+                    if os.path.isdir(path):     # "/"-separated chunk keys
+                        shutil.rmtree(path)
+                    else:
+                        os.remove(path)
+        self.episode_ends = self.episode_ends[:-1]
+        self._flush_meta()
+        self._refresh()
+
+    def get_episode(self, i: int) -> Dict[str, np.ndarray]:
+        start = 0 if i == 0 else int(self.episode_ends[i - 1])
+        return self.get_steps_slice(start, int(self.episode_ends[i]))
+
+    def get_steps_slice(self, start: int, stop: int) -> Dict[str, np.ndarray]:
+        return {k: v[start:stop] for k, v in self.data.items()}
+
+    def save_meta(self) -> None:
+        """Write `meta` (per-episode arrays, e.g. track_seed) to disk."""
+        for k, v in self.meta.items():
+            v = np.asarray(v)
+            _write_array(os.path.join(self.path, "meta", k), v,
+                         max(1, v.shape[0]),
+                         _resolve_compressor(self._compressors, k))

@@ -6,10 +6,10 @@ card's machines, so versions are compared only within a run).
 
 K4, at the 10 shapes of one r5blend U-Net forward (B=256) in fp32 and
 bf16, in the two variants the forward calls (`gelu` after the first conv
-of a block, `post`, the FiLM affine, after the second): the previous
-design (`csrc/gn_act_prev.cu`), the plan `gn_act_plan` takes, and that
-plan with one choice changed at a time: the most values a thread before
-more threads (`values_first`); half and twice the values a thread a pass;
+of a block, `post`, the FiLM affine, after the second): the plan
+`gn_act_plan` takes, and that plan with one choice changed at a time: the
+most values a thread before more threads (`values_first`); half and twice
+the values a thread a pass;
 16-byte packs where the plan takes 8-byte ones (`wide_packs`, bf16's
 smallest slice); one-value packs (no wide loads, channels computed per
 value). Then
@@ -24,9 +24,9 @@ the builds in the order A, B, B, A; and its largest error against the
 plain version, and of its GroupNorm against one computed in float64 on a
 slice whose mean is 16 of its standard deviations (where the fast
 variance cancels). K2, at B=1024 and 256 envs on the 16-track bank's roads
-at headings 0, 45 and 90 degrees: the previous design, the kernel on the
-grid `sample_banked_plan` sizes to the card, and on one CTA a strip of
-every env (no loop over envs). Each timing is the mean of two CUDA-graph
+at headings 0, 45 and 90 degrees: the kernel on the grid
+`sample_banked_plan` sizes to the card, and on one CTA a strip of every
+env (no loop over envs). Each timing is the mean of two CUDA-graph
 replays taken in the order A, B, ..., B, A. Prints one line a case and,
 last, one JSON object.
 """
@@ -176,7 +176,7 @@ def ab_gn_plans(cases) -> list[dict]:
         a, out = case["args"], case["out"]
         plan = cuda_ops.gn_act_plan(B_ENVS, H * W, C, dtype)
         plans = gn_variants(plan, B_ENVS, H * W, C, dtype)
-        fns = {"prev": lambda: cuda_ops._gn_act_launch(out, None, *a)}
+        fns = {}
         want = cuda_ops.gn_act_ref(*a).float()
         for name, p in plans.items():
             cuda_ops._gn_act_launch(out, p, *a)
@@ -190,8 +190,7 @@ def ab_gn_plans(cases) -> list[dict]:
                    plans={k: dataclasses.asdict(p) for k, p in plans.items()})
         rows.append(row)
         print(f"K4 {row['dtype']:8s} {H}x{W}x{C} {row['variant']:4s}: "
-              + "  ".join(f"{k} {v:.4f}" for k, v in ms.items())
-              + f"  (default/prev {ms['default'] / ms['prev']:.3f})",
+              + "  ".join(f"{k} {v:.4f}" for k, v in ms.items()),
               flush=True)
     for dtype in ("float32", "bfloat16"):
         mine = [r for r in rows if r["dtype"] == dtype]
@@ -199,14 +198,9 @@ def ab_gn_plans(cases) -> list[dict]:
         sums = {n: sum(GN_CALLS[r["H"], r["W"], r["C"]] // 2
                        * r["ms"].get(n, r["ms"]["default"]) for r in mine)
                 for n in names}
-        worst = max(mine, key=lambda r: r["ms"]["default"] / r["ms"]["prev"])
         print(f"K4 {dtype} one forward (30 calls: 15 gelu, 15 post; where a "
               "choice does not apply, the default's): " + "  ".join(
-                  f"{k} {v:.4f}" for k, v in sums.items())
-              + f"; worst default/prev {worst['H']}x{worst['W']}x"
-              f"{worst['C']} {worst['variant']} "
-              f"{worst['ms']['default'] / worst['ms']['prev']:.3f}",
-              flush=True)
+                  f"{k} {v:.4f}" for k, v in sums.items()), flush=True)
     return rows
 
 
@@ -319,8 +313,7 @@ def ab_k2(device) -> list[dict]:
             # the grid sized to the card, and one CTA a strip of every env
             groups = {"default": cuda_sampler.sample_banked_plan(B, n_sm),
                       "one_env_a_cta": B}
-            fns = {"prev": lambda: cuda_sampler._sample_banked_launch(args,
-                                                                      None)}
+            fns = {}
             for name, g in groups.items():
                 got = cuda_sampler._sample_banked_launch(args, g)
                 assert torch.equal(got, want), (name, B, deg)

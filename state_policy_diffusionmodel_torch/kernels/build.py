@@ -28,16 +28,12 @@ BUILD_DIR = PACKAGE_DIR.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# every kernel source of the port, by library name; the *_prev sources are
-# the previous designs of K2 and K4, built only to time the current ones
-# against them in one process (chip_smoke.py, kernels/ab.py)
+# every kernel source of the port, by library name
 SOURCES = {"attention_core": "attention_core.cu",
            "sample_banked": "sample_banked.cu",
            "conv3x3": "conv3x3.cu",
            "gn_act": "gn_act.cu",
-           "conv_dw": "conv_dw.cu",
-           "gn_act_prev": "gn_act_prev.cu",
-           "sample_banked_prev": "sample_banked_prev.cu"}
+           "conv_dw": "conv_dw.cu"}
 
 
 @dataclass

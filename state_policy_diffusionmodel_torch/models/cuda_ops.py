@@ -689,14 +689,13 @@ def _gn_act_plan_for(B: int, HW: int, C: int, pack: int,
                   grid=cdiv(B, per_cta))
 
 
-def _gn_lib(name: str = "gn_act") -> ctypes.CDLL:
-    """The K4 library `name`: the kernel (its plan's five integers after B,
-    HW, C and gelu) or `gn_act_prev` (no plan)."""
+def _gn_lib() -> ctypes.CDLL:
+    """The K4 library (its plan's five integers after B, HW, C and
+    gelu)."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    plan = [i32] * 5 if name == "gn_act" else []
-    return _typed_lib(name, {
-        f"gn_act_{d}": [p, p, p, p, i64, p, i64, p, p] + [i32] * 4 + plan
-        + [p] for d in _KERNEL_DTYPES.values()})
+    return _typed_lib("gn_act", {
+        f"gn_act_{d}": [p, p, p, p, i64, p, i64, p, p] + [i32] * 9 + [p]
+        for d in _KERNEL_DTYPES.values()})
 
 
 def gn_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -737,15 +736,13 @@ def gn_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out
 
 
-def _gn_act_launch(out, plan: Optional[GnPlan], x, gamma, beta, ps=None,
+def _gn_act_launch(out, plan: GnPlan, x, gamma, beta, ps=None,
                    pb=None, x_res=None, gelu=False) -> None:
-    """K4 under `plan` into `out`, on inputs `gn_act_cuda` has checked; with
-    no plan, the previous design (`csrc/gn_act_prev.cu`)."""
+    """K4 under `plan` into `out`, on inputs `gn_act_cuda` has checked."""
     B, H, W, C = x.shape
     ptr = lambda t: None if t is None else t.data_ptr()
-    lib = _gn_lib("gn_act_prev" if plan is None else "gn_act")
-    plan_args = [] if plan is None else [
-        plan.pack, plan.nv, plan.team, plan.per_cta, plan.iters]
+    lib = _gn_lib()
+    plan_args = [plan.pack, plan.nv, plan.team, plan.per_cta, plan.iters]
     with torch.cuda.device(x.device):
         rc = getattr(lib, f"gn_act_{_KERNEL_DTYPES[x.dtype]}")(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),

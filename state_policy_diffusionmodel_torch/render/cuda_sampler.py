@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
 
 import torch
 
@@ -80,18 +79,17 @@ def sample_banked_plan(B: int, n_sm: int) -> int:
     return max(1, min(B, n_sm * _CTAS_A_SM // STRIPS))
 
 
-def _sampler_lib(name: str = "sample_banked") -> ctypes.CDLL:
+def _sampler_lib() -> ctypes.CDLL:
     from ..kernels import build
 
-    lib = build.library(name)
+    lib = build.library("sample_banked")
     if not getattr(lib, "_spdm_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        grid = [i32] if name == "sample_banked" else []
         lib.sample_banked_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # tex .. out
             i32, i32, i32,                            # B, U, T
-            f32, f32, *grid, ptr]                     # playfield, scale,
-        lib.sample_banked_launch.restype = i32        # [groups,] stream
+            f32, f32, i32, ptr]                       # playfield, scale,
+        lib.sample_banked_launch.restype = i32        # groups, stream
         lib._spdm_typed = True
     return lib
 
@@ -137,22 +135,19 @@ def sample_banked_cuda(tex_bank, track_ids, cos_a, sin_a, pos, rx, ry):
     return out
 
 
-def _sample_banked_launch(args: dict, groups: Optional[int]) -> torch.Tensor:
+def _sample_banked_launch(args: dict, groups: int) -> torch.Tensor:
     """K2 on `groups` x STRIPS CTAs, on inputs `sample_banked_cuda` has
-    checked; with no groups, the previous design
-    (`csrc/sample_banked_prev.cu`)."""
+    checked."""
     tex_bank, track_ids = args["tex_bank"], args["track_ids"]
     dev = tex_bank.device
     B, U, T = track_ids.shape[0], tex_bank.shape[0], tex_bank.shape[-1]
     out = torch.empty((B, ROWS, LANES), dtype=torch.int32, device=dev)
-    grid = [] if groups is None else [groups]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        lib = "sample_banked_prev" if groups is None else "sample_banked"
-        rc = _sampler_lib(lib).sample_banked_launch(
+        rc = _sampler_lib().sample_banked_launch(
             *(args[k].data_ptr() for k in ("tex_bank", "track_ids", "cos_a",
                                            "sin_a", "pos", "rx", "ry")),
-            out.data_ptr(), B, U, T, PLAYFIELD, texel_scale(T), *grid,
+            out.data_ptr(), B, U, T, PLAYFIELD, texel_scale(T), groups,
             stream)
     if rc != 0:
         raise RuntimeError(f"sample_banked kernel launch failed: CUDA error "

@@ -235,17 +235,25 @@ def ema_subdir(run_dir: str) -> str:
     raise FileNotFoundError(f"{run_dir} holds no EMA weights")
 
 
-def load_run(run_dir: str, device="cuda", ema: bool = False):
+def load_run(run_dir: str, device="cuda", ema: bool = False,
+             epoch: Optional[int] = None):
     """(policy, params, stats) for a trained run, assembled as the JAX
     package's run_predictions does: the config from hparams.yaml, the
-    newest epoch's params (the EMA weights with `ema`), and STATS.pkl."""
+    newest epoch's params (or `epoch`'s; the EMA weights with `ema`), and
+    STATS.pkl."""
     dev = resolve_device(device)
     hp = load_hparams(os.path.join(run_dir, "hparams.yaml"))
     cfg = PolicyConfig(**{k: hp[k] for k in _CONFIG_KEYS if k in hp})
     subdir = ema_subdir(run_dir) if ema else "checkpoints"
-    ckpt = latest_checkpoint(run_dir, subdir)
+    if epoch is None:
+        ckpt = latest_checkpoint(run_dir, subdir)
+    else:
+        ckpt = checkpoint_dir(run_dir, epoch, subdir)
+        ckpt = ckpt if os.path.isdir(ckpt) else None
     if ckpt is None:
-        raise FileNotFoundError(f"no checkpoint under {run_dir}/{subdir}")
+        raise FileNotFoundError(
+            f"no checkpoint under {run_dir}/{subdir}"
+            + ("" if epoch is None else f" for epoch {epoch}"))
     params = params_from_jax(load_npz(os.path.join(ckpt, "params.npz")), dev)
     unet = params["unet"]
     if cfg.model not in MODEL_REGISTRY:

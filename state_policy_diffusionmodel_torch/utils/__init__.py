@@ -1,3 +1,3 @@
-from . import printing
+from . import plotting, printing
 
-__all__ = ["printing"]
+__all__ = ["plotting", "printing"]

@@ -289,12 +289,12 @@ def test_gn_act_plan_branches():
     assert (p.pack, p.team, p.per_cta, p.grid) == (4, 64, 2, 3)
 
 
-def _gn_model(x, gamma, beta, ps, pb, x_res, gelu, plan):
-    """K4 in plain torch with the kernel's two sums: each thread adds its
-    values and their squares (exact in double) in pack order in double and
-    rounds both to f32, a warp adds its lanes by an xor butterfly, a team
-    its warps in order; then the statistics and the epilogue of
-    gn_act_ref."""
+def _gn_sums(x, plan, acc=torch.float64):
+    """K4's two sums of each batch element of x under `plan`: each thread
+    adds its values and their squares in pack order in `acc` (the kernel:
+    double, where the squares are exact) and rounds both to f32, a warp
+    adds its lanes by an xor butterfly, a team its warps in order, in
+    f32. Returns (sum, sum of squares), each (B,) f32."""
     B, H, W, C = x.shape
     n, e = H * W * C, plan.pack
     G = plan.team
@@ -302,9 +302,9 @@ def _gn_model(x, gamma, beta, ps, pb, x_res, gelu, plan):
     xf[:, :n] = x.float().reshape(B, n)
     seq = xf.reshape(B, plan.iters * plan.nv, G, e).permute(0, 2, 1, 3) \
         .reshape(B, G, -1)
-    sd = qd = torch.zeros(B, G, dtype=torch.float64)
+    sd = qd = torch.zeros(B, G, dtype=acc)
     for i in range(seq.shape[-1]):
-        v = seq[..., i].double()
+        v = seq[..., i].to(acc)
         sd, qd = sd + v, qd + v * v
     s, q = sd.float(), qd.float()
     lanes = torch.arange(32)
@@ -316,9 +316,17 @@ def _gn_model(x, gamma, beta, ps, pb, x_res, gelu, plan):
         t = torch.zeros(B)
         for w in range(G // 32):
             t = t + a[:, w, 0]
-        return t[:, None, None]
+        return t
 
-    s, q = across(s), across(q)
+    return across(s), across(q)
+
+
+def _gn_model(x, gamma, beta, ps, pb, x_res, gelu, plan):
+    """K4 in plain torch with the kernel's two sums (`_gn_sums`), then the
+    statistics and the epilogue of gn_act_ref."""
+    B, H, W, C = x.shape
+    n = H * W * C
+    s, q = (t[:, None, None] for t in _gn_sums(x, plan))
     m = s / n
     rs = torch.rsqrt((q / n - m * m).clamp_min(0.0) + cuda_ops.GN_EPS)
     y = (x.float().reshape(B, H * W, C) - m) * rs * gamma.float() \
@@ -368,6 +376,50 @@ def test_gn_act_summation_order_model_matches_plain(warm_erf, H, W, C,
 # ---------------------------------------------------------------------------
 # K2: sample_banked_plan
 # ---------------------------------------------------------------------------
+
+
+# the fast variance's resolution: float32 ulps of E[x^2]
+GN_VAR_ULPS = 10
+
+
+@pytest.mark.parametrize("H,W,C", GN_SHAPES)
+def test_gn_act_sums_hold_the_variance_where_the_mean_is_far_off(H, W, C):
+    """On slices whose mean is 16 standard deviations, K4's statistics in
+    its sum order (`_gn_sums` under the plan r5blend's B=256 gets, then
+    the fast variance E[x^2] - m^2 in f32, as the reference computes it)
+    with the kernel's double per-thread sums lie within GN_VAR_ULPS f32
+    ulps of E[x^2] of float64's variance: 256 slices of noise and 256 of
+    per-channel constants (a conv's output on a spatially constant input),
+    each mean drawn from [0.5, 4.5]. f32 per-thread sums in the same order
+    miss that bound at the two largest slices (32x8: 64 and 128 values a
+    thread) on the per-channel constants; on noise, and at the smaller
+    slices, the f32 roundings of the sums and of the formula, which both
+    orders share, set the error."""
+    plan = cuda_ops.gn_act_plan(256, H * W, C, torch.float32)
+    gen = torch.Generator().manual_seed(H * W * C)
+    B, n = 256, H * W * C
+    worst = {}
+    for kind in ("noise", "per-channel"):
+        c = torch.rand(B, 1, generator=gen, dtype=torch.float64) * 4 + 0.5
+        z = torch.randn((B, H, W, C) if kind == "noise" else (B, 1, 1, C),
+                        generator=gen, dtype=torch.float64)
+        z = z.expand(B, H, W, C).reshape(B, n)
+        z = (z - z.mean(1, keepdim=True)) / z.std(1, unbiased=False,
+                                                  keepdim=True)
+        x = (c * (1 + z / 16)).float().reshape(B, H, W, C)
+        xd = x.double().reshape(B, n)
+        exact = ((xd - xd.mean(1, keepdim=True)) ** 2).mean(1)
+        assert (xd.mean(1) >= 15.99 * exact.sqrt()).all()
+        ulp = (xd * xd).mean(1) * 2.0 ** -24
+        for acc in (torch.float64, torch.float32):
+            s, q = _gn_sums(x, plan, acc)
+            m = s / n
+            var = (q / n - m * m).double()
+            worst[kind, acc] = ((var - exact).abs() / ulp).max().item()
+    for kind in ("noise", "per-channel"):
+        assert worst[kind, torch.float64] <= GN_VAR_ULPS, worst
+    if H == 32:
+        assert worst["per-channel", torch.float32] > GN_VAR_ULPS, worst
 
 @pytest.mark.parametrize("B", [1, 255, 256, 1024, 1025])
 def test_sample_banked_plan_covers_every_pixel_once(B):

@@ -46,6 +46,23 @@ def _close(got, want, atol):
                                rtol=0, atol=atol)
 
 
+def torch_threads(n):
+    """An autouse module fixture that runs the module's torch work on at
+    most `n` intra-op threads: pytest-xdist runs several test processes on
+    the host's cores, and oversubscribed OpenMP pools spin (a fit measured
+    >10x slower with the default count than alone), while small eager ops
+    are as fast on one thread. No check depends on the count."""
+
+    @pytest.fixture(scope="module", autouse=True)
+    def fixture():
+        before = torch.get_num_threads()
+        torch.set_num_threads(min(n, before))
+        yield
+        torch.set_num_threads(before)
+
+    return fixture
+
+
 # ---------------------------------------------------------------------------
 # schedules
 # ---------------------------------------------------------------------------
@@ -305,7 +322,10 @@ def test_port_sources_import_no_jax():
             "models/cuda_ops.py", "kernels/build.py", "data/normalize.py",
             "data/replay_buffer.py", "data/dataset.py", "train/loop.py",
             "train/lr_schedule.py", "train/checkpoints.py",
-            "utils/printing.py", "cli/train_policy.py"} <= names
+            "utils/printing.py", "cli/train_policy.py", "control/pid.py",
+            "control/drivers.py", "data/collect.py", "eval/rollout.py",
+            "eval/suite.py", "train/sample_viz.py", "utils/plotting.py",
+            "cli/generate_data.py", "cli/evaluate.py"} <= names
     bad = {str(f.relative_to(REPO)): r for f in files
            for r in _imported_roots(f) if r in _FORBIDDEN}
     assert not bad

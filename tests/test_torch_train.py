@@ -56,6 +56,8 @@ from state_policy_diffusionmodel_torch.params_from_jax import (
 from state_policy_diffusionmodel_torch.train import checkpoints as tck
 from state_policy_diffusionmodel_torch.train import loop as tl
 
+from test_torch_policy import torch_threads
+
 CFG = dict(noise_steps=1000, obs_horizon=10, pred_horizon=30,
            inpaint_horizon=1, model="UNet_Film", vision_encoder="autoencoder",
            step_size=5, model_width=8)
@@ -64,16 +66,7 @@ TOL_ULPS, BF16_ULP = 6, 2 ** -7
 ZERO_REL = 1e-6
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for this module's torch work: pytest-xdist runs
-    several test processes on the host's cores, and oversubscribed OpenMP
-    pools spin (a fit here measured >10x slower with the default count
-    than alone); the checks do not depend on the count."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(min(2, before))
-    yield
-    torch.set_num_threads(before)
+_torch_threads = torch_threads(2)
 
 
 def _keyed(tree):

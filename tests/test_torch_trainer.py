@@ -7,9 +7,11 @@ compiles JAX. Schedules and the hparams round trip are exact.
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
 import pathlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -27,6 +29,8 @@ from state_policy_diffusionmodel_torch.params_from_jax import params_to_jax
 from state_policy_diffusionmodel_torch.train import checkpoints as tck
 from state_policy_diffusionmodel_torch.train import loop as tl
 
+from test_torch_policy import torch_threads
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RUN_DIR = REPO / "artifacts" / "r5blend_best"
 CFG = dict(noise_steps=1000, obs_horizon=10, pred_horizon=30,
@@ -35,16 +39,7 @@ CFG = dict(noise_steps=1000, obs_horizon=10, pred_horizon=30,
 LR, DECAY = 4e-4, 0.9995
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for this module's torch work: pytest-xdist runs
-    several test processes on the host's cores, and oversubscribed OpenMP
-    pools spin (a fit here measured >10x slower with the default count
-    than alone); the checks do not depend on the count."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(min(2, before))
-    yield
-    torch.set_num_threads(before)
+_torch_threads = torch_threads(2)
 
 
 # ---------------------------------------------------------------------------
@@ -161,8 +156,13 @@ def test_cli_trains_on_cpu_and_refuses_what_is_not_ported(tmp_path):
                         (["--profile_dir", "p"], "profile")):
         with pytest.raises(NotImplementedError, match=what):
             tcli.main(args + ["--no_sample_viz"] + extra)
-    with pytest.raises(NotImplementedError, match="--no_sample_viz"):
-        tcli.main(args)
+    # the sample figures are on by default; without matplotlib (the GPU
+    # machine) the CLI raises and names the flag that turns them off
+    find_spec = importlib.util.find_spec
+    with mock.patch.object(importlib.util, "find_spec", lambda name, *a: (
+            None if name == "matplotlib" else find_spec(name, *a))):
+        with pytest.raises(RuntimeError, match="--no_sample_viz"):
+            tcli.main(args)
     res = tcli.main(args + ["--no_sample_viz"])
     run = tmp_path / "runs" / "v"
     assert res["step"] >= 1

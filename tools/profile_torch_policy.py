@@ -1,9 +1,9 @@
 """Where the time goes on the GPU, for the PyTorch/CUDA port.
 
     python3 tools/profile_torch_policy.py [--what denoise|env_step|loop|
-                                                 train_step]
+                                                 train_step|collect|eval]
                                           [--amp] [--conv-path PATH]
-                                          [--conv-bwd pallas]
+                                          [--conv-bwd pallas] [--repeats R]
 
 --what picks the work that is profiled, after a warm-up:
   denoise   one DDIM-10 denoise of artifacts/r5blend_best (10 U-Net
@@ -14,14 +14,21 @@
             driving 256 envs on the 4-track bank, one denoise among them;
   train_step one optimizer step of r5blend at B=256 (loss, backward, the
             clip, Adam, the EMA) on a random batch of 10 frames a window,
-            from r5blend's weights.
+            from r5blend's weights;
+  collect   data.collect_episodes of the PID lane follower on the 16-track
+            bank, 16 envs: a reset and 10 steps, one chunk to the host;
+  eval      eval.precision of r5blend (fp32, DDIM-10 leading) at window 70
+            of a store the lane follower collected first (16 envs x 210
+            steps): 5 samples and their 150-frame replay (render off)
+            from the O(1) warm start, as five of the seven evals run.
 --conv-path sets `cuda_ops.CONV_PATH` (xla9, xla or pallas; by default
 what SPDM_CONV_PATH / SPDM_PALLAS_CONV selected at import): `pallas` runs
 the U-Net's conv blocks through the K3-K5 kernels. --conv-bwd sets
 `cuda_ops.CONV_BWD` (SPDM_CONV_BWD): `pallas` computes the conv weight
 gradients with K6.
 It prints the wall time (host clock around work that ends in a
-synchronize, unprofiled and profiled), the device's busy time (the union of
+synchronize, unprofiled and profiled; --repeats R takes the unprofiled
+one R times and prints their median and each), the device's busy time (the union of
 the spans of its events, kernels, copies and sets: kernels chained by
 programmatic dependent launch overlap) beside the same events' summed
 times (this tool's busy time in its earlier versions), the device's idle
@@ -39,6 +46,7 @@ import sys
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -88,6 +96,34 @@ def make_work(what: str, amp: bool, dev):
     from state_policy_diffusionmodel_torch.train import load_run
 
     tag = "amp (bf16)" if amp else "fp32"
+    if what in ("collect", "eval"):
+        from state_policy_diffusionmodel_torch import eval as E
+        from state_policy_diffusionmodel_torch.data import (
+            ReplayBuffer, WindowDataset, collect_episodes,
+        )
+
+        U = 16
+        bank = load_or_build_bank(U, bake=True, device=dev)
+        seeds = list(range(100, 100 + U))
+        if what == "collect":
+            return (f"collection: lane follower, {U} envs x 10 steps and "
+                    "the reset", lambda: collect_episodes(
+                        seeds, n_steps=10, geoms=bank, device=dev))
+        buf = ReplayBuffer()
+        for ep in collect_episodes(seeds, n_steps=210, geoms=bank,
+                                   return_states=True, device=dev):
+            buf.add_episode(ep)
+        buf.meta["track_seed"] = np.asarray(seeds, np.int64)
+        policy, params, stats = load_run(os.path.join(
+            REPO, "artifacts", "r5blend_best"), dev, ema=True)
+        cfg = policy.config
+        ctx = E.EvalContext(policy=policy, params=params,
+                            dataset=WindowDataset(
+                                buf, cfg.obs_horizon, cfg.pred_horizon,
+                                cfg.step_size, stats=stats),
+                            num_inference_steps=10)
+        return ("eval.precision, window 70, 5 runs, r5blend EMA fp32",
+                lambda: E.precision(ctx, 70, 5))
     if what == "env_step":
         B, U = 1024, 16
         bank = load_or_build_bank(U, bake=True, device=dev)
@@ -181,7 +217,8 @@ def merged_ms(spans) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--what", default="denoise",
-                    choices=["denoise", "env_step", "loop", "train_step"])
+                    choices=["denoise", "env_step", "loop", "train_step",
+                             "collect", "eval"])
     ap.add_argument("--amp", action="store_true",
                     help="bf16 nets, f32 scheduler math")
     ap.add_argument("--conv-path", choices=["xla9", "xla", "pallas"],
@@ -190,6 +227,8 @@ def main() -> int:
     ap.add_argument("--conv-bwd", choices=["", "pallas"], default=None,
                     help="the training backward's selector "
                     "(cuda_ops.CONV_BWD); pallas = the K6 weight gradient")
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="unprofiled wall readings; their median is kept")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_policy: needs a GPU", file=sys.stderr)
@@ -213,10 +252,13 @@ def main() -> int:
     for _ in range(3):
         work()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    work()
-    torch.cuda.synchronize()
-    wall_plain_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(args.repeats):
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_plain_ms = float(np.median(walls))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -237,6 +279,8 @@ def main() -> int:
     busy_ms = merged_ms(spans) if spans else kernel_ms
     launches = sum(e.count for e in kernels)
     print(f"card: {torch.cuda.get_device_name(0)}")
+    if args.repeats > 1:
+        print(f"unprofiled walls, ms: {[round(w, 3) for w in walls]}")
     print(f"{what}: wall {wall_plain_ms:.3f}"
           f" ms unprofiled, {wall_ms:.3f} ms profiled; device busy "
           f"{busy_ms:.3f} ms (kernel times sum to {kernel_ms:.3f} ms) over "
