@@ -39,6 +39,14 @@ Phases, each printed with its seconds:
               F.group_norm's for GroupNorm alone (a yardstick) and the
               ptxas lines (no spills); double_conv (K5) at
               the 14 distinct shapes of the 15 DoubleConvs;
+  nets        K3-K5 at the 17 conv and 12 DoubleConv shapes of a UNetSimple
+              forward (width 16, B=256; SIMPLE_DC_SHAPES, six of them
+              residual), fp32 and bf16, twice (bit-identical), timed as
+              above (no conv3x3 kernel may spill); then one UNetSimple
+              forward from flax's initializers on the conv-kernel path:
+              exactly 24 K3, 24 K4 and 12 K5 launches, each DoubleConv held
+              against its plain version on its own activations, and
+              DDIM-10 on both conv paths within SIMPLE_CHAIN_TOL;
   K6          conv_dw, the conv weight gradient, against its plain version
               at the 17 distinct conv shapes of one r5blend training step
               (B=256, fp32 and bf16), twice (bit-identical), with cuDNN's
@@ -84,6 +92,12 @@ Phases, each printed with its seconds:
   denoise     one DDIM-10 denoise in fp32 and under amp, on the default and
               the conv-kernel path;
   5. cpu      a small rollout on the card against the same on the CPU;
+  r4rn serve  artifacts/r4rn_best (UNetFiLM + a trained ResNet18GN) through
+              load_run: the observation-fed policy as r5blend's (500 K1,
+              fp32 actions within ACTION_TOL of the plain attention path),
+              the closed loop in fp32 and amp on both conv paths (500 K1,
+              51 K2; 3,000 K3, 3,000 K4, 1,500 K5 on the kernels), frames/s
+              and the ResNet's ms on one 256-frame batch;
   6. collect  the PID lane follower (mode middle, speed 30) on the 16-track
               bank (seeds 100..115), 16 envs x 400 steps through
               data.collect_episodes with car_state: exactly 401 K2 launches
@@ -127,8 +141,20 @@ Phases, each printed with its seconds:
               and the O(1)
               car_state warm start at window 70 within 5e-3 of the replay
               warm start.
+  r4rn train  on that store, the encoder trained: the U-Net's and the
+              ResNet's gradients on the default path and SPDM_CONV_BWD=pallas
+              against the all-plain path (floored_grad_gap; amp within
+              AMP_GRAD_FACTOR; 5 K1, 31 K6 a step), train-step ms in fp32
+              and amp, one CLI epoch with --vision_encoder resnet18
+              --train_encoder, its EMA run served 16 envs x 10 frames;
+  autoencoder r3_autoencoder on the golden frames, card against CPU within
+              AE_TOL; two epochs of cli/train_autoencoder.py on the
+              collected frames (the val loss falling); cli/train_policy.py
+              --encoder_ckpt of that run keeps its encoder;
 Then one line holds the kernels as JSON (with the policy, env, loop,
-collect, training and eval readings; each kernel's sums over one forward
+collect, training, eval, UNetSimple, r4rn and autoencoder readings; the
+K1-K6 entries with `launches_r4rn`, K3-K5 with `launches_unet_simple` and
+their UNetSimple sums; each kernel's sums over one forward
 or step in fp32, and in bf16 under "bf16"), one the card's name and power
 limit, and the last line is {"ok": true, "device": {...}}. Any failed
 check exits non-zero first.
@@ -228,6 +254,32 @@ DC_SHAPES = [(16, 4, 64, 64, False), (16, 4, 64, 128, False),
 # two ulps
 CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 DC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+
+# (H, W, Cin, Cout, residual) of the 12 DoubleConvs of one UNetSimple
+# forward (width 16, a 1,350-wide cond: r5blend's horizons and conv-AE
+# features) that the conv-kernel path takes at B=256 (Cin >= 8 and
+# B*H*W >= 1024; DoubleConv_0, Cin=1, stays plain), in forward order: the
+# three down blocks, then the three up blocks, each a residual DoubleConv
+# (Cin -> Cin) and one to the block's width. The nets phase checks this
+# list against the shapes its forward sees.
+SIMPLE_DC_SHAPES = [(16, 4, 16, 16, True), (16, 4, 16, 32, False),
+                    (8, 2, 64, 64, True), (8, 2, 64, 128, False),
+                    (4, 1, 160, 160, True), (4, 1, 160, 256, False),
+                    (8, 2, 448, 448, True), (8, 2, 448, 128, False),
+                    (16, 4, 224, 224, True), (16, 4, 224, 64, False),
+                    (32, 8, 112, 112, True), (32, 8, 112, 32, False)]
+# DDIM-10 samples of UNetSimple, conv-kernel path against the default
+# path, fp32: tests/test_torch_policy.py's CHAIN_ATOL for two fp32
+# implementations of one net (the chain amplifies ~1e-6 in eps by up to
+# 157x), in normalized units
+SIMPLE_CHAIN_TOL = 2e-3
+R4RN_DIR = os.path.join(HERE, "artifacts", "r4rn_best")
+R3_DIR = os.path.join(HERE, "artifacts", "r3_autoencoder")
+# r3's reconstructions of the golden frames, card against CPU, fp32 (TF32
+# off): cuDNN may take Winograd or FFT algorithms for fp32 convs, whose
+# rounding reaches ~1e-5 of the operands; the outputs are sigmoids in (0, 1)
+AE_TOL = 1e-4
+AE_EPOCHS, AE_BATCH = 2, 128
 
 GOLDEN_STATES = os.path.join(HERE, "tests", "fixtures", "golden_states.pkl")
 K2_PIXELS = 72 * 128
@@ -472,15 +524,17 @@ def check_k1_unets(cuda_ops, device, seed):
     return out
 
 
-def conv_calls():
-    """(H, W, Cin, Cout) of the 30 K3 calls of one forward, in order."""
-    return [c for H, W, cin, cout, _ in DC_SHAPES
+def conv_calls(shapes=None):
+    """(H, W, Cin, Cout) of the K3 calls of one forward, in order: 30 of
+    r5blend's (DC_SHAPES), or of the DoubleConvs `shapes`."""
+    return [c for H, W, cin, cout, _ in shapes or DC_SHAPES
             for c in ((H, W, cin, cout), (H, W, cout, cout))]
 
 
-def gn_calls():
-    """(H, W, C, variant) of the 30 K4 calls of one forward, in order."""
-    return [c for H, W, _, cout, res in DC_SHAPES
+def gn_calls(shapes=None):
+    """(H, W, C, variant) of the K4 calls of one forward, in order: 30 of
+    r5blend's (DC_SHAPES), or of the DoubleConvs `shapes`."""
+    return [c for H, W, _, cout, res in shapes or DC_SHAPES
             for c in ((H, W, cout, "gelu"),
                       (H, W, cout, "post_res" if res else "post"))]
 
@@ -583,8 +637,9 @@ def fmt_ms(ms):
     return "-" if ms is None else f"{ms:.4f}"
 
 
-def check_k3(cuda_ops, device, build):
-    """K3 alone at the 17 distinct conv shapes of the forward, fp32 and
+def check_k3(cuda_ops, device, build, calls=None):
+    """K3 alone at the 17 distinct conv shapes of the forward (or of
+    `calls`), fp32 and
     bf16: against its plain version, twice (bit-identical), with its time,
     the plain version's, cuDNN's (F.conv2d on the channels-last views of x
     and w, TF32 off), the bound of the taps the conv needs (three where
@@ -598,7 +653,7 @@ def check_k3(cuda_ops, device, build):
     gen = torch.Generator(device=device).manual_seed(4321)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
-        for H, W, cin, cout in dict.fromkeys(conv_calls()):
+        for H, W, cin, cout in dict.fromkeys(calls or conv_calls()):
             x = torch.randn((N_ENVS, H, W, cin), generator=gen,
                             device=device).to(dtype)
             w = (torch.randn((cout, cin, 3, 3), generator=gen, device=device)
@@ -656,8 +711,9 @@ GN_VARIANTS = {"gn": lambda x, g, b, ps, pb, xr: (x, g, b),
                "post_res": lambda x, g, b, ps, pb, xr: (x, g, b, ps, pb, xr)}
 
 
-def check_k4(cuda_ops, device, build):
-    """K4 alone at the 10 distinct conv-output shapes of the forward, in
+def check_k4(cuda_ops, device, build, calls=None):
+    """K4 alone at the 10 distinct conv-output shapes of the forward (or of
+    `calls`), in
     its four variants, fp32 and bf16: against its plain version, twice
     (bit-identical), with its plan, its time (the median of three
     readings), the plain version's,
@@ -672,7 +728,8 @@ def check_k4(cuda_ops, device, build):
     no_spills(ptxas, "gn_act_kernel", "K4")
     gen = torch.Generator(device=device).manual_seed(8765)
     records = []
-    shapes = dict.fromkeys((H, W, C) for H, W, C, _ in gn_calls())
+    calls = calls or gn_calls()
+    shapes = dict.fromkeys((H, W, C) for H, W, C, _ in calls)
     for dtype in (torch.float32, torch.bfloat16):
         for H, W, C in shapes:
             inputs = gn_inputs(N_ENVS, H, W, C, dtype, gen, device)
@@ -714,10 +771,10 @@ def check_k4(cuda_ops, device, build):
                       f"{rec['bound_ms']:.4f} ({rec['bound_by']})  plan "
                       f"{plan}", flush=True)
     for dtype in ("float32", "bfloat16"):
-        fwd = per_forward(records, gn_calls(),
+        fwd = per_forward(records, calls,
                           lambda r: (r["H"], r["W"], r["C"], r["variant"]),
                           dtype)
-        print(f"  K4 {dtype} one forward (30 calls): kernel "
+        print(f"  K4 {dtype} one forward ({len(calls)} calls): kernel "
               f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, bound "
               f"{fwd['bound_ms']:.4f} ms", flush=True)
     return records, ptxas
@@ -735,22 +792,25 @@ def dc_inputs(H, W, cin, cout, dtype, gen, device):
         1 + 0.2 * r(N_ENVS, cout), 0.3 * r(N_ENVS, cout))]
 
 
-def check_k5(cuda_ops, device):
-    """K5 at the 14 distinct DoubleConv shapes of the forward, fp32 and
-    bf16: against its plain version, with its time, the plain version's and
+def check_k5(cuda_ops, device, shapes=None):
+    """K5 at the 14 distinct DoubleConv shapes of the forward (or at
+    `shapes`), fp32 and bf16: against its plain version, twice
+    (bit-identical), with its time, the plain version's and
     the bound of the whole block (x, the weights, the vectors read once, the
     output written once; both convs' operations at the taps they need).
     Returns records."""
     gen = torch.Generator(device=device).manual_seed(2468)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
-        for H, W, cin, cout, res in dict.fromkeys(DC_SHAPES):
+        for H, W, cin, cout, res in dict.fromkeys(shapes or DC_SHAPES):
             a = dc_inputs(H, W, cin, cout, dtype, gen, device) + [res]
             key = f"{H}x{W} {cin}->{cout}{' res' if res else ''}"
-            rec = check_kernel("K5", records, key,
-                               cuda_ops.double_conv_cuda(*a),
+            got = cuda_ops.double_conv_cuda(*a)
+            rec = check_kernel("K5", records, key, got,
                                cuda_ops.double_conv_ref(*a), DC_TOL, dtype,
                                H=H, W=W, Cin=cin, Cout=cout, residual=res)
+            if not torch.equal(got, cuda_ops.double_conv_cuda(*a)):
+                raise Failed(f"K5 {dtype} {key}: two runs differ")
             timed(rec, lambda: cuda_ops.double_conv_cuda(*a),
                   lambda: cuda_ops.double_conv_ref(*a), iters=10)
             M = N_ENVS * H * W
@@ -1528,20 +1588,25 @@ def eval_phase(device, work, counts, cuda_ops):
                 warm_start_gap=gap, k1_eval_batches_err=k1_err)
 
 
-def unet_grads(policy, params, batch, t, noise, amp=False):
-    """(loss, {name: grad}) of the U-Net for one batch at fixed t and noise;
-    with amp as the train step computes it (`amp_params`)."""
+def unet_grads(policy, params, batch, t, noise, amp=False,
+               trained=("unet",)):
+    """(loss, {module.parameter: grad}) for one batch at fixed t and noise,
+    with amp as the train step computes it (`amp_params`): the U-Net's
+    gradients, or those of every module in `trained` (the encoder too
+    where it trains, as r4rn's)."""
     from state_policy_diffusionmodel_torch.train import loop
 
-    unet = params["unet"]
-    unet.zero_grad(set_to_none=True)
+    for name in trained:
+        params[name].zero_grad(set_to_none=True)
+    mods = params
     if amp:
         batch = {k: v.to(torch.bfloat16) for k, v in batch.items()}
-        params = loop.amp_params(params)
-    loss = policy.loss(params, batch, t=t, noise=noise)
+        mods = loop.amp_params(params)
+    loss = policy.loss(mods, batch, t=t, noise=noise)
     loss.backward()
-    return loss.detach(), {n: p.grad.detach().clone()
-                           for n, p in unet.named_parameters()}
+    return loss.detach(), {f"{top}.{n}": p.grad.detach().clone()
+                           for top in trained
+                           for n, p in params[top].named_parameters()}
 
 
 def grad_gap(got, want):
@@ -1558,6 +1623,30 @@ def grad_gap(got, want):
         else:
             worst = max(worst, (err / w.abs().max()).item())
     return worst, worst_zero, zeros
+
+
+def floored_grad_gap(got, want):
+    """grad_gap for a net whose gradients reach the rounding floor: each
+    tensor's max abs error over the larger of its largest |grad| and
+    GRAD_ZERO of the largest gradient of all (r4rn's bottleneck blocks take
+    ~1e-9 of the largest gradient, a small difference of large terms, so
+    their own relative error says nothing of the kernels), the key biases
+    apart as in grad_gap. Returns the worst, its tensor, the tensors held
+    at the floor, and the worst and its tensor without the floor."""
+    top = max(g.abs().max() for g in want.values())
+    rows = []
+    for n, w in want.items():
+        if n.endswith("MultiHeadDotProductAttention_0.key.bias"):
+            continue
+        err, own = (got[n] - w).abs().max(), w.abs().max()
+        rows.append(((err / torch.maximum(own, GRAD_ZERO * top)).item(),
+                     (err / own).item(), (own < GRAD_ZERO * top).item(), n))
+    worst = max(rows)
+    own_worst = max(rows, key=lambda r: r[1])
+    return dict(max_rel_err=worst[0], worst_tensor=worst[3],
+                floored_tensors=sum(r[2] for r in rows),
+                max_rel_err_own=own_worst[1],
+                worst_tensor_own=own_worst[3])
 
 
 def rel_l2(got, want):
@@ -1745,6 +1834,472 @@ def train_phases(args, device, cuda_ops, policy, params, stats, counts,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the other nets: UNetSimple on the conv path, r4rn_best (ResNet18GN) served
+# and trained, the conv autoencoder
+# ---------------------------------------------------------------------------
+
+def unet_simple_phase(cuda_ops, device, seed, counts):
+    """One UNetSimple forward (width 16, a 1,350-wide cond, flax's
+    initializers from a seeded generator, B=256) on the conv-kernel path:
+    exactly 24 K3, 24 K4 and 12 K5 launches; every DoubleConv held against
+    its plain version on the forward's own activations (ShadowDoubleConv),
+    fp32 and bf16, its shapes SIMPLE_DC_SHAPES; DDIM-10 samples on the
+    default path against the conv-kernel path, fp32, within
+    SIMPLE_CHAIN_TOL; the forward's time on both paths."""
+    from state_policy_diffusionmodel_torch import diffusion
+    from state_policy_diffusionmodel_torch.diffusion.policy import (
+        cast_params, init_module_,
+    )
+    from state_policy_diffusionmodel_torch.models import build_model
+
+    zero_counts, read_counts = counts
+    cfg = diffusion.PolicyConfig(model="UNet")
+    cond_dim = cfg.obs_horizon * cfg.observation_dim
+    unet = init_module_(build_model("UNet", cond_dim, time_dim=cfg.time_dim),
+                        torch.Generator().manual_seed(seed)).to(device).eval()
+    if (unet.width, cond_dim) != (16, 1350):
+        raise Failed(f"UNetSimple of width {unet.width}, cond {cond_dim}")
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    x = torch.randn((N_ENVS, 31, 5, 1), generator=gen, device=device)
+    t = torch.randint(0, 1000, (N_ENVS,), generator=gen, device=device)
+    cond = torch.randn((N_ENVS, cond_dim), generator=gen, device=device)
+    bf16 = cast_params({"unet": unet}, torch.bfloat16)["unet"]
+    conv_path = lambda: mock.patch.object(cuda_ops, "CONV_PATH", "pallas")
+    want = {"K1": 0, "K2": 0, "K3": 24, "K4": 24, "K5": 12, "K6": 0}
+    out = {}
+    with torch.no_grad():
+        for net, dtype in ((unet, torch.float32), (bf16, torch.bfloat16)):
+            tag = "amp" if dtype == torch.bfloat16 else "fp32"
+            args = (x.to(dtype), t, cond.to(dtype))
+            with conv_path():
+                net(*args)                                    # warm-up
+                torch.cuda.synchronize()
+                # the conv-kernel path: counts to 0 just before, read after
+                zero_counts()
+                y = net(*args)
+                torch.cuda.synchronize()
+                n = read_counts()
+                shadow = ShadowDoubleConv(cuda_ops)
+                with mock.patch.object(cuda_ops, "double_conv", shadow):
+                    y_plain = net(*args)
+                kernel_ms = cuda_ms(lambda: net(*args), 10)
+            plain_ms = cuda_ms(lambda: net(*args), 10)
+            on_net = shadow.summary()
+            rec = dict(launches=n, kernels_on_net=on_net,
+                       vs_plain_rel=rel_err(y, y_plain)[1].item(),
+                       forward_ms=kernel_ms, default_forward_ms=plain_ms)
+            out[tag] = rec
+            print(f"  UNetSimple {tag}, B={N_ENVS}: launches {n}; kernels "
+                  f"vs plain on its activations: {fmt(on_net)}; output vs "
+                  f"the plain path {rec['vs_plain_rel']:.3e} of its largest;"
+                  f" forward {kernel_ms:.3f} ms on the conv kernels, "
+                  f"{plain_ms:.3f} ms on the default path", flush=True)
+            if n != want:
+                raise Failed(f"UNetSimple {tag}: launches {n}, expected "
+                             f"{want}")
+            if shadow.shapes != set(SIMPLE_DC_SHAPES) or shadow.calls != 12:
+                raise Failed(f"UNetSimple {tag}: DoubleConvs "
+                             f"{sorted(shadow.shapes)} x {shadow.calls} are "
+                             "not SIMPLE_DC_SHAPES x 12")
+            for k, tol in (("K3", CONV_TOL), ("K4", CONV_TOL),
+                           ("K5", DC_TOL)):
+                if not on_net[f"{k}_max_rel_err"] <= tol[dtype]:
+                    raise Failed(f"UNetSimple {tag}: {k} differs from its "
+                                 f"plain version on the net's activations "
+                                 f"by {on_net[f'{k}_max_rel_err']} > "
+                                 f"{tol[dtype]}")
+    # DDIM-10 from one x_T on both conv paths, fp32
+    policy = diffusion.DiffusionPolicy(cfg, device)
+    window = {k: torch.randn((N_ENVS, 10, d), generator=gen, device=device)
+              for k, d in (("position", 2), ("velocity", 2), ("action", 3),
+                           ("image_features", 128))}
+    x_T = policy.init_noise(N_ENVS, torch.Generator().manual_seed(seed))
+    sample = lambda: policy.sample({"unet": unet}, window, sampler="ddim",
+                                   num_inference_steps=10, init_noise=x_T)
+    a_default = sample()
+    with conv_path():
+        a_conv = sample()
+    d = (a_conv - a_default).abs().max().item()
+    out["ddim10_conv_vs_default_max"] = d
+    print(f"  UNetSimple DDIM-10, {N_ENVS} samples, fp32: conv kernels vs "
+          f"default path max |diff| {d:.3e} (tol {SIMPLE_CHAIN_TOL})")
+    if not (d <= SIMPLE_CHAIN_TOL and bool(torch.isfinite(a_conv).all())):
+        raise Failed(f"UNetSimple DDIM-10 on the conv kernels differs from "
+                     f"the default path by {d}")
+    return out
+
+
+def r4rn_serve_phase(args, cuda_ops, device, counts):
+    """r4rn_best (UNetFiLM width 64 with a trained ResNet18GN encoder,
+    epoch-107 EMA) through load_run: the observation-fed ring policy on
+    the golden frames at 256 envs x 50 frames, fp32, exactly 500 K1, its
+    actions within ACTION_TOL of the plain attention path's and K1 within
+    K1_REL_TOL of its plain version on the policy's activations; then the
+    closed loop on the 4-track bank, 50 frames in fp32 and amp on both conv
+    paths: exactly 500 K1 and 51 K2 (and 3,000 K3, 3,000 K4, 1,500 K5 on
+    the conv-kernel path), frames/s; the ResNet's ms on one 256-frame
+    batch."""
+    from state_policy_diffusionmodel_torch import diffusion
+    from state_policy_diffusionmodel_torch.envs import vector
+    from state_policy_diffusionmodel_torch.track import load_or_build_bank
+    from state_policy_diffusionmodel_torch.train import load_run
+
+    zero_counts, read_counts = counts
+    policy, params, stats = load_run(R4RN_DIR, device, ema=True)
+    enc = params["encoder"]
+    kinds = (type(params["unet"]).__name__, type(enc).__name__,
+             params["unet"].width, policy.config.observation_dim)
+    n_enc = sum(p.numel() for p in enc.parameters())
+    print(f"  r4rn_best: {kinds}, encoder {n_enc} parameters")
+    if kinds != ("UNetFiLM", "ResNet18GN", 64, 519):
+        raise Failed(f"r4rn_best loaded as {kinds}")
+    out = dict(encoder_parameters=n_enc)
+    denoises = N_FRAMES // policy.config.step_size
+    k1_want = 5 * 10 * denoises
+
+    stream = observation_stream(stats, args.seed, device)
+    fn = diffusion.make_ring_policy(policy, stats, sampler="ddim",
+                                    num_inference_steps=10, seed=args.seed)
+    rollout(fn, params, diffusion.init_ring_carry(policy, N_ENVS), stream, 5)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    a, _ = rollout(fn, params, diffusion.init_ring_carry(policy, N_ENVS),
+                   stream, N_FRAMES)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = read_counts()
+    shadow = ShadowAttention(cuda_ops)
+    with mock.patch.object(cuda_ops, "attention_core", shadow):
+        a_plain, _ = rollout(fn, params,
+                             diffusion.init_ring_carry(policy, N_ENVS),
+                             stream, N_FRAMES)
+    k1_real = shadow.summary()
+    sp = spread(a, a_plain)
+    out["observation_fed"] = dict(seconds=secs, fps=N_ENVS * N_FRAMES / secs,
+                                  launches=n, k1_on_policy=k1_real,
+                                  vs_plain=sp)
+    print(f"  observation-fed, fp32: {N_ENVS * N_FRAMES} frames in "
+          f"{secs:.3f} s = {N_ENVS * N_FRAMES / secs:.1f} frames/s, launches "
+          f"{n}; K1 vs plain on the policy: {fmt(k1_real)}; actions vs the "
+          f"plain attention path: {fmt(sp)}", flush=True)
+    if n["K1"] != k1_want or any(n[k] for k in ("K2", "K3", "K4", "K5")):
+        raise Failed(f"r4rn observation-fed: launches {n}, expected "
+                     f"{k1_want} K1 and nothing else")
+    if not (k1_real["max_rel_err"] <= K1_REL_TOL[torch.float32]
+            and sp["max"] <= ACTION_TOL and bool(torch.isfinite(a).all())):
+        raise Failed(f"r4rn observation-fed: K1 {k1_real}, actions {sp}")
+
+    bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=device)
+    ids = torch.arange(N_ENVS, dtype=torch.int32, device=device) \
+        % LOOP_TRACKS
+
+    def drive(amp, n_frames):
+        fn = diffusion.make_ring_policy(
+            policy, stats, sampler="ddim", num_inference_steps=10, amp=amp,
+            seed=args.seed)
+        return vector.rollout_policy(
+            bank, diffusion.env_policy(fn, params),
+            diffusion.init_ring_carry(policy, N_ENVS), n_frames,
+            auto_reset=False, track_ids=ids, device=device)
+
+    out["closed_loop"] = {}
+    for path in ("xla9", "pallas"):
+        for amp in (False, True):
+            tag = ("amp" if amp else "fp32") + (
+                ", conv kernels" if path == "pallas" else "")
+            want = {"K1": k1_want, "K2": N_FRAMES + 1, "K6": 0,
+                    **{k: (v * denoises if path == "pallas" else 0)
+                       for k, v in (("K3", 300), ("K4", 300), ("K5", 150))}}
+            with mock.patch.object(cuda_ops, "CONV_PATH", path):
+                drive(amp, 5)                                 # warm-up
+                torch.cuda.synchronize()
+                # the path: counts to 0 just before, read just after
+                zero_counts()
+                t0 = time.perf_counter()
+                states, _, res = drive(amp, N_FRAMES)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                n = read_counts()
+            acts = res.actions
+            rec = dict(seconds=secs, fps=N_ENVS * N_FRAMES / secs,
+                       launches=n,
+                       tiles=states.tile_count.float().mean().item())
+            out["closed_loop"][tag] = rec
+            print(f"  closed loop {tag}: {N_ENVS} envs x {N_FRAMES} frames "
+                  f"on the {LOOP_TRACKS}-track bank in {secs:.3f} s = "
+                  f"{rec['fps']:.1f} frames/s; launches {n}", flush=True)
+            if n != want:
+                raise Failed(f"r4rn closed loop {tag}: launches {n}, "
+                             f"expected {want}")
+            if tuple(acts.shape) != (N_FRAMES, N_ENVS, 3) or not bool(
+                    torch.isfinite(acts).all()):
+                raise Failed(f"r4rn closed loop {tag}: actions "
+                             f"{tuple(acts.shape)}, or not finite")
+
+    frames = torch.rand((N_ENVS, 96, 96, 3), generator=torch.Generator(
+        device=device).manual_seed(args.seed), device=device)
+    enc_bf16 = diffusion.policy.cast_params({"e": enc}, torch.bfloat16)["e"]
+    with torch.no_grad():
+        out["resnet_ms"] = dict(
+            fp32=cuda_ms(lambda: enc(frames), 10),
+            bf16=cuda_ms(lambda: enc_bf16(frames.bfloat16()), 10))
+    print(f"  ResNet18GN on one {N_ENVS}-frame batch: "
+          f"{out['resnet_ms']['fp32']:.3f} ms fp32, "
+          f"{out['resnet_ms']['bf16']:.3f} ms bf16")
+    return out
+
+
+TRAINED = ("unet", "encoder")
+
+
+def r4rn_train_phase(args, cuda_ops, device, counts, work):
+    """r4rn_best trained on the collected store: one batch of 256 windows
+    at fixed t and noise, the encoder trained, the gradients of the U-Net
+    and the ResNet on the default path (K1) and on SPDM_CONV_BWD=pallas
+    (K1 + K6) against the all-plain path (fp32 within GRAD_TOL of each
+    tensor's largest |grad| or of GRAD_ZERO of the largest gradient of
+    all, whichever is larger: `floored_grad_gap`; the encoder's tensors
+    within GRAD_TOL of their own; amp within AMP_GRAD_FACTOR), launches
+    exact;
+    train-step ms at B=256 in fp32 and amp; one epoch through the CLI with
+    `--vision_encoder resnet18 --train_encoder` (r5blend's recipe
+    otherwise), its run served by load_run at 16 envs x 10 frames."""
+    from state_policy_diffusionmodel_torch import diffusion
+    from state_policy_diffusionmodel_torch.cli import train_policy
+    from state_policy_diffusionmodel_torch.data import (
+        DeviceWindowDataset, WindowDataset,
+    )
+    from state_policy_diffusionmodel_torch.envs import vector
+    from state_policy_diffusionmodel_torch.track import load_or_build_bank
+    from state_policy_diffusionmodel_torch.train import load_run
+
+    zero_counts, read_counts = counts
+    out = {}
+    policy, params, _ = load_run(R4RN_DIR, device)
+    if not policy.config.train_encoder:
+        raise Failed("r4rn_best's hparams do not train the encoder")
+    with phase("r4rn gradients on the card"):
+        ds = WindowDataset(os.path.join(work, "card.zarr"), 10, 30, 5)
+        twin = DeviceWindowDataset(ds, device)
+        idx = np.random.default_rng(args.seed).permutation(len(ds))[:N_ENVS]
+        batch = twin.batch(idx, image_frames=10)
+        gen = torch.Generator(device=device).manual_seed(args.seed + 5)
+        t = torch.randint(0, 1000, (N_ENVS,), generator=gen, device=device)
+        noise = torch.randn((N_ENVS, 31, 5), generator=gen, device=device)
+        plain_attn = lambda q, k, v, num_heads=1: \
+            cuda_ops.AttentionCore.apply(cuda_ops.attention_core_ref,
+                                         num_heads, q, k, v)
+        ref = {}
+        with conv_paths(cuda_ops, "xla9", "", plain_attn):
+            for amp in (False, True):
+                zero_counts()
+                ref[amp] = unet_grads(policy, params, batch, t, noise, amp,
+                                      TRAINED)
+                if any(read_counts().values()):
+                    raise Failed(f"the plain path launched {read_counts()}")
+        plain_gap = rel_l2(ref[True][1], ref[False][1])
+        print(f"  all-plain path: loss fp32 {ref[False][0].item():.6f}, amp "
+              f"{ref[True][0].item():.6f}; amp gradient vs fp32: relative "
+              f"L2 {plain_gap:.3e}")
+        grads = {}
+        for name in ("default", "conv_bwd"):
+            cp, cb = TRAIN_PATHS[name]
+            want = {"K1": 5, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                    "K6": 31 * (cb == "pallas")}
+            grads[name] = {}
+            for amp in (False, True):
+                tag = "amp" if amp else "fp32"
+                with conv_paths(cuda_ops, cp, cb):
+                    zero_counts()
+                    loss, g = unet_grads(policy, params, batch, t, noise,
+                                         amp, TRAINED)
+                    torch.cuda.synchronize()
+                    n = read_counts()
+                rec = dict(loss=loss.item(), launches=n,
+                           rel_l2_vs_fp32_plain=rel_l2(g, ref[False][1]))
+                if amp:
+                    rec["limit"] = AMP_GRAD_FACTOR * plain_gap
+                    ok = rec["rel_l2_vs_fp32_plain"] <= rec["limit"]
+                else:
+                    enc = {k: v for k, v in g.items()
+                           if k.startswith("encoder.")}
+                    _, worst_zero, zeros = grad_gap(g, ref[False][1])
+                    rec.update(floored_grad_gap(g, ref[False][1]),
+                               zero_tensors_max=worst_zero,
+                               zero_tensors=len(zeros),
+                               encoder_max_rel_err=grad_gap(enc, {
+                                   k: ref[False][1][k] for k in enc})[0],
+                               encoder_tensors=len(enc))
+                    ok = (rec["max_rel_err"] <= GRAD_TOL
+                          and rec["encoder_max_rel_err"] <= GRAD_TOL
+                          and worst_zero <= GRAD_ZERO)
+                grads[name][tag] = rec
+                print(f"  {name:9s} {tag}: {fmt(rec)}", flush=True)
+                if n != want:
+                    raise Failed(f"r4rn gradients, {name} {tag}: launches "
+                                 f"{n}, expected {want}")
+                if not (ok and np.isfinite(rec["loss"])):
+                    raise Failed(f"r4rn gradients, {name} {tag}: {rec}")
+        for m in params.values():
+            m.zero_grad(set_to_none=True)
+        out["gradients"] = grads
+
+    with phase("r4rn train-step timing"):
+        steps = {}
+        for amp in (False, True):
+            tag = "amp" if amp else "fp32"
+            rec = time_train_steps(policy, params, twin, args.seed, amp,
+                                   device, counts)
+            steps[tag] = rec
+            print(f"  {tag}: {rec['ms']:.2f} ms a step (median of "
+                  f"{TIMED_STEPS}: {[round(v, 2) for v in rec['ms_each']]}),"
+                  f" {rec['samples_per_s']:.1f} samples/s, peak "
+                  f"{rec['peak_gib']:.2f} GiB; launches a step "
+                  f"{rec['launches_per_step']}", flush=True)
+        out["step_ms"] = steps
+    del twin
+
+    run = os.path.join(work, "runs", "r4rn_recipe")
+    with phase("r4rn training through the CLI"):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = train_policy.main([
+            "--dataset_dir", work, "--dataset_name", "card.zarr",
+            "--out_dir", os.path.join(work, "runs"), "--version",
+            "r4rn_recipe", "--vision_encoder", "resnet18", "--train_encoder",
+            "--seed", "42"] + RECIPE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = read_counts()
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        losses = [e[k] for e in events for k in ("loss", "val_loss",
+                                                 "train_loss") if k in e]
+        missing = [p for p in ("checkpoints/epoch=0/params.npz",
+                               "checkpoints_ema/epoch=0/params.npz",
+                               "STATS.pkl", "hparams.yaml", "metrics.jsonl",
+                               "trainer_state/opt/params.npz")
+                   if not os.path.exists(os.path.join(run, p))]
+        epoch = next(e for e in events if e["event"] == "epoch")
+        print(f"  one epoch, --vision_encoder resnet18 --train_encoder, "
+              f"{res['step']} steps of {N_ENVS} in {secs:.2f} s (the epoch "
+              f"{epoch['seconds']:.2f} s, {epoch['samples_per_sec']:.1f} "
+              f"samples/s); train loss {res['history']['train_loss']}, val "
+              f"{res['history']['val_loss']}; launches {n}")
+        if missing or not losses or not all(np.isfinite(losses)):
+            raise Failed(f"r4rn CLI training: missing {missing}, losses "
+                         f"{losses}")
+        if not n["K1"] or any(n[k] for k in ("K2", "K3", "K4", "K5", "K6")):
+            raise Failed(f"r4rn CLI training launched {n}")
+        out["cli"] = dict(seconds=secs, steps=res["step"],
+                          history=res["history"], launches=n,
+                          epoch_seconds=epoch["seconds"],
+                          samples_per_s=epoch["samples_per_sec"])
+
+    with phase("serve the trained r4rn run"):
+        tpol, tparams, tstats = load_run(run, device, ema=True)
+        if type(tparams["encoder"]).__name__ != "ResNet18GN":
+            raise Failed(f"the run loads a {type(tparams['encoder'])}")
+        bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=device)
+        ids = torch.arange(DATA_ENVS, dtype=torch.int32,
+                           device=device) % LOOP_TRACKS
+        fn = diffusion.make_ring_policy(tpol, tstats, sampler="ddim",
+                                        num_inference_steps=10,
+                                        seed=args.seed)
+        _, _, served = vector.rollout_policy(
+            bank, diffusion.env_policy(fn, tparams),
+            diffusion.init_ring_carry(tpol, DATA_ENVS), 10,
+            auto_reset=False, track_ids=ids, device=device)
+        a = served.actions
+        print(f"  the EMA checkpoint serves {DATA_ENVS} envs x 10 frames: "
+              f"actions {tuple(a.shape)}, mean |a| "
+              f"{a.abs().mean().item():.4f}")
+        if tuple(a.shape) != (10, DATA_ENVS, 3) or not bool(
+                torch.isfinite(a).all()):
+            raise Failed(f"the trained r4rn run serves actions "
+                         f"{tuple(a.shape)}, or not finite")
+        out["served"] = dict(frames=10, envs=DATA_ENVS,
+                             mean_abs_action=a.abs().mean().item())
+    return out
+
+
+def autoencoder_phase(device, counts, work):
+    """r3_autoencoder on the golden frames, card against CPU (AE_TOL), its
+    MSE; AE_EPOCHS epochs of cli/train_autoencoder.py on the collected
+    store at B=AE_BATCH (losses finite, the val loss falling, no port
+    kernel launched); cli/train_policy.py --encoder_ckpt of that run (one
+    epoch at width 8, r5blend's recipe otherwise) keeps its encoder leaf
+    for leaf."""
+    from state_policy_diffusionmodel_torch.cli import (
+        train_autoencoder, train_policy,
+    )
+    from state_policy_diffusionmodel_torch.params_from_jax import params_to_jax
+    from state_policy_diffusionmodel_torch.train import load_run
+
+    zero_counts, read_counts = counts
+    out = {}
+    with np.load(GOLDEN) as g:
+        frames = np.stack([g[k] for k in sorted(g.files)]).astype(
+            np.float32) / 255.0
+    x = torch.from_numpy(frames)
+    with torch.no_grad():
+        got = train_autoencoder.load_autoencoder(R3_DIR, device)(
+            x.to(device)).cpu()
+        want = train_autoencoder.load_autoencoder(R3_DIR, "cpu")(x)
+    d = (got - want).abs().max().item()
+    mse = ((got - x) ** 2).mean().item()
+    out["r3"] = dict(frames=len(frames), card_vs_cpu_max=d, mse=mse)
+    print(f"  r3_autoencoder on the {len(frames)} golden frames: card vs CPU "
+          f"max |diff| {d:.3e} (tol {AE_TOL}); reconstruction MSE {mse:.6f}")
+    if not d <= AE_TOL:
+        raise Failed(f"r3 reconstructions: card and CPU differ by {d}")
+
+    run = os.path.join(work, "ae_runs", "card")
+    zero_counts()
+    t0 = time.perf_counter()
+    res = train_autoencoder.main([
+        "--dataset", os.path.join(work, "card.zarr"), "--epochs",
+        str(AE_EPOCHS), "--batch_size", str(AE_BATCH), "--out_dir",
+        os.path.join(work, "ae_runs"), "--version", "card", "--device",
+        str(device)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = read_counts()
+    h = res["history"]
+    out["train"] = dict(seconds=secs, history=h, launches=n,
+                        steps=len(h["step_loss"]))
+    print(f"  {AE_EPOCHS} epochs at B={AE_BATCH} on the collected frames, "
+          f"{len(h['step_loss'])} steps in {secs:.2f} s: train "
+          f"{h['train_loss']}, val {h['val_loss']}; launches {n}")
+    if not (np.isfinite(h["step_loss"]).all()
+            and np.isfinite(h["val_loss"]).all()
+            and h["val_loss"][-1] < h["val_loss"][0]) or any(n.values()):
+        raise Failed(f"autoencoder training: {h}, launches {n}")
+
+    zero_counts()
+    train_policy.main([
+        "--dataset_dir", work, "--dataset_name", "card.zarr", "--out_dir",
+        os.path.join(work, "runs"), "--version", "ae_encoder",
+        "--encoder_ckpt", run, "--model_width", "8", "--seed", "42"]
+        + RECIPE)
+    _, params, _ = load_run(os.path.join(work, "runs", "ae_encoder"), device)
+    mine = params_to_jax({"encoder": params["encoder"]})
+    ae_leaves = params_to_jax({"encoder": train_autoencoder.load_autoencoder(
+        run, "cpu").encoder})
+    same = sorted(mine) == sorted(ae_leaves) and all(
+        np.array_equal(mine[k], ae_leaves[k]) for k in mine)
+    print(f"  cli/train_policy.py --encoder_ckpt of that run: one epoch at "
+          f"width 8, its encoder equal to the run's "
+          f"{'leaf for leaf' if same else 'NOT'}; launches {read_counts()}")
+    if not same:
+        raise Failed("the policy trained on the autoencoder run holds "
+                     "another encoder")
+    out["policy_cli_encoder_equal"] = same
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1835,6 +2390,16 @@ def main() -> int:
         return 0
     with phase("K5 double_conv vs plain"):
         k5 = check_k5(cuda_ops, device)
+    with phase("K3-K5 at UNetSimple's shapes"):
+        no_spills(k3_ptxas, "conv3x3_", "K3")
+        k3_simple, _ = check_k3(cuda_ops, device, build,
+                                conv_calls(SIMPLE_DC_SHAPES))
+        k4_simple, _ = check_k4(cuda_ops, device, build,
+                                gn_calls(SIMPLE_DC_SHAPES))
+        k5_simple = check_k5(cuda_ops, device, SIMPLE_DC_SHAPES)
+    with phase("UNetSimple forward on the conv kernels"):
+        simple = unet_simple_phase(cuda_ops, device, args.seed,
+                                   (zero_counts, read_counts))
     with phase("K6 conv_dw vs plain"):
         k6, k6_ptxas = check_k6(cuda_ops, device, build)
         k1_bwd_ms = attention_bwd_ms(cuda_ops, device)
@@ -2260,6 +2825,9 @@ def main() -> int:
             raise Failed(f"card and cpu actions differ by {d}")
 
     counts = (zero_counts, read_counts)
+    with phase("r4rn serve"):
+        r4rn = r4rn_serve_phase(args, cuda_ops, device, counts)
+
     work = tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
         with phase("collect"):
@@ -2268,6 +2836,10 @@ def main() -> int:
                                 counts, work)
         with phase("eval"):
             evaluated = eval_phase(device, work, counts, cuda_ops)
+        r4rn["training"] = r4rn_train_phase(args, cuda_ops, device, counts,
+                                            work)
+        with phase("autoencoder"):
+            autoencoder = autoencoder_phase(device, counts, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2287,6 +2859,7 @@ def main() -> int:
         # the same 500); the eval phase's beside it
         "launches": loop["fp32"]["k1_launches"],
         "launches_eval": evaluated["launches"]["K1"],
+        "launches_r4rn": r4rn["closed_loop"]["fp32"]["launches"]["K1"],
         # one U-Net forward's five calls at B=256, fp32 (the main path)
         "max_abs_err": max(r["max_abs_err"] for r in fp32),
         "max_abs_err_on_policy": runs["fp32"]["k1_on_policy"]["max_abs_err"],
@@ -2321,6 +2894,7 @@ def main() -> int:
         "launches": loop["fp32"]["k2_launches"],
         "launches_env_render": envs_run["env_render"]["k2_launches"],
         "launches_collect": collected["launches"]["K2"],
+        "launches_r4rn": r4rn["closed_loop"]["fp32"]["launches"]["K2"],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2_main["ms"],
         "plain_ms": k2_main["plain_ms"],
@@ -2331,6 +2905,25 @@ def main() -> int:
         "per_case": k2,
     })
     kernels += conv_kernel_entries(k3, k4, k5, runs, loop)
+    # UNetSimple's forward (width 16, B=256) and r4rn's conv-path loop
+    r4rn_conv = r4rn["closed_loop"]["fp32, conv kernels"]["launches"]
+    for name, k, recs, calls, key in (
+            ("conv3x3", "K3", k3_simple, conv_calls(SIMPLE_DC_SHAPES),
+             lambda r: (r["H"], r["W"], r["Cin"], r["Cout"])),
+            ("gn_act", "K4", k4_simple, gn_calls(SIMPLE_DC_SHAPES),
+             lambda r: (r["H"], r["W"], r["C"], r["variant"])),
+            ("double_conv", "K5", k5_simple, SIMPLE_DC_SHAPES,
+             lambda r: (r["H"], r["W"], r["Cin"], r["Cout"],
+                        r["residual"]))):
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches_r4rn"] = r4rn_conv[k]
+        entry["launches_unet_simple"] = simple["fp32"]["launches"][k]
+        entry["unet_simple"] = dict(
+            fp32=per_forward(recs, calls, key),
+            bf16=per_forward(recs, calls, key, "bfloat16"),
+            max_rel_err_on_net=simple["fp32"]["kernels_on_net"][
+                f"{k}_max_rel_err"],
+            per_shape=recs)
     next(k for k in kernels if k["name"] == "conv3x3")["ptxas"] = k3_ptxas
     next(k for k in kernels if k["name"] == "gn_act")["ptxas"] = k4_ptxas
     dw_key = lambda r: (r["H"], r["W"], r["Cin"], r["Cout"])
@@ -2349,10 +2942,14 @@ def main() -> int:
         "bound_ms_9taps": step["bound_ms_9taps"],
         "bound_ms_taps_computed": step["bound_ms_taps_computed"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
+        "launches_r4rn": r4rn["training"]["gradients"]["conv_bwd"]["fp32"][
+            "launches"]["K6"],
         "bf16": step_bf16, "ptxas": k6_ptxas, "per_shape": k6})
     print(json.dumps({"kernels": kernels, "policy": runs, "env": envs_run,
                       "closed_loop": loop, "collect": collected,
-                      "training": training, "eval": evaluated}))
+                      "training": training, "eval": evaluated,
+                      "unet_simple": simple, "r4rn": r4rn,
+                      "autoencoder": autoencoder}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@ its params.npz. The validation sample figures (`train/sample_viz.py`) are
 on unless `--no_sample_viz`; they need matplotlib, and where it is missing
 (the GPU machine) the CLI raises and names the flag. Flags whose modules
 are not ported raise NotImplementedError and name their ROADMAP.md item:
---tensorboard, --profile_dir, --vision_encoder resnet18 and --model UNet.
+--tensorboard and --profile_dir.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def parse_arguments(argv=None):
                    choices=["UNet_Film", "UNet_FilmnoAttention", "UNet"])
     p.add_argument("--model_width", type=int, default=None,
                    help="U-Net base channel count; default = the "
-                        "reference channel plan (64)")
+                        "net's reference channel plan (64, UNet: 16)")
     p.add_argument("--noise_scheduler", default="linear",
                    choices=["linear", "linear_v2", "cosine"])
     p.add_argument("--vision_encoder", default="autoencoder",
@@ -101,13 +101,6 @@ def _refuse_unported(args) -> None:
             "the validation sample figures (on unless --no_sample_viz) "
             "need matplotlib, which is not installed here: pass "
             "--no_sample_viz")
-    if args.vision_encoder == "resnet18":
-        raise NotImplementedError(
-            "--vision_encoder resnet18: ResNet18GN is not ported (ROADMAP.md "
-            "Queue 1)")
-    if args.model == "UNet":
-        raise NotImplementedError(
-            "--model UNet: UNetSimple is not ported (ROADMAP.md Queue 1)")
 
 
 def load_encoder_tree(ckpt: str) -> dict:

@@ -84,7 +84,7 @@ def init_ring_carry(policy: DiffusionPolicy, n_envs: int,
     }
     if cfg.has_encoder:
         hist["image_features"] = torch.zeros(
-            (n_envs, L, cfg.observation_dim - cfg.state_cond_dim), device=dev)
+            (n_envs, L, cfg.feature_dim), device=dev)
     return {
         "hist": hist,
         "queue": torch.zeros((n_envs, cfg.pred_horizon, 3), device=dev),

@@ -9,12 +9,13 @@ config and the sampling semantics are the same:
   reverse step;
 - samplers start from UNIFORM [0, 1) noise unless `uniform_init=False`.
 
-`params` is the dict of loaded modules {'unet': UNetFiLM, 'encoder':
-Encoder} (see `params_from_jax.py`). x_T comes from an explicit
-`torch.Generator` or from `init_noise`; the JAX package's threefry draws
-cannot be reproduced in torch, so `loss` draws t and the noise from an
-explicit generator too, or takes them as arguments. `init_params` builds
-fresh modules with flax's initializers by distribution.
+`params` is the dict of loaded modules {'unet': UNetFiLM or UNetSimple,
+'encoder': Encoder or ResNet18GN} (see `params_from_jax.py`). x_T comes
+from an explicit `torch.Generator` or from `init_noise`; the JAX package's
+threefry draws cannot be reproduced in torch, so `loss` draws t and the
+noise from an explicit generator too, or takes them as arguments.
+`init_params` builds fresh modules with flax's initializers by
+distribution.
 """
 
 from __future__ import annotations
@@ -28,9 +29,15 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models import Encoder, build_model
+from ..models import Encoder, ResNet18GN, build_model
+from ..models.layers import ConvTranspose
 from ..params_from_jax import encoder_from_jax
 from . import schedules as S
+
+
+# vision_encoder -> the encoder's module; "none" has none
+ENCODERS = {"autoencoder": Encoder, "resnet18": ResNet18GN}
+RESNET_FEATURES = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +53,11 @@ class PolicyConfig:
     noise_scheduler_type: str = "linear"
     step_size: int = 5
     time_dim: int = 256
-    vision_encoder: str = "autoencoder"   # autoencoder | none
+    vision_encoder: str = "autoencoder"   # autoencoder | resnet18 | none
     vision_latent: int = 128
     uniform_init: bool = True        # reference torch.rand sampler init
     train_encoder: bool = False      # reference freezes the AE encoder
-    model_width: Optional[int] = None  # U-Net base channels (None = 64)
+    model_width: Optional[int] = None  # U-Net base channels (None = ref plan)
 
     @property
     def state_cond_dim(self) -> int:
@@ -58,8 +65,13 @@ class PolicyConfig:
 
     @property
     def observation_dim(self) -> int:
-        return self.state_cond_dim + (self.vision_latent
-                                      if self.has_encoder else 0)
+        return self.state_cond_dim + self.feature_dim
+
+    @property
+    def feature_dim(self) -> int:
+        """The width of the features the encoder emits (0 without one)."""
+        return {"autoencoder": self.vision_latent,
+                "resnet18": RESNET_FEATURES}.get(self.vision_encoder, 0)
 
     @property
     def horizon(self) -> int:
@@ -67,7 +79,7 @@ class PolicyConfig:
 
     @property
     def has_encoder(self) -> bool:
-        return self.vision_encoder == "autoencoder"
+        return self.vision_encoder in ENCODERS
 
 
 def cast_params(params: Dict[str, torch.nn.Module],
@@ -105,10 +117,15 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 def init_module_(module: torch.nn.Module, generator: torch.Generator):
     """flax's initializers on every parameter, by name: kernels and weights
     `lecun_normal`, biases zeros, norm scales ones (nn.Dense, nn.Conv,
-    nn.DenseGeneral, nn.LayerNorm and DoubleConv's own params)."""
+    nn.ConvTranspose, nn.DenseGeneral, nn.LayerNorm, nn.GroupNorm and
+    DoubleConv's own params). A transposed conv's weight is (in, out, kh,
+    kw), and flax counts its fan_in as in * kh * kw, as on its HWIO kernel."""
     for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "weight" or leaf.endswith("kernel"):
+        *path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(path))
+        if leaf == "weight" and isinstance(owner, ConvTranspose):
+            lecun_normal_(p.transpose(0, 1), generator)
+        elif leaf == "weight" or leaf.endswith("kernel"):
             lecun_normal_(p, generator)
         elif "scale" in leaf:
             torch.nn.init.ones_(p)
@@ -119,11 +136,18 @@ def init_module_(module: torch.nn.Module, generator: torch.Generator):
     return module
 
 
+def make_encoder(config: PolicyConfig) -> torch.nn.Module:
+    """A fresh (uninitialised) encoder of the config's kind."""
+    if config.vision_encoder == "resnet18":
+        return ResNet18GN()
+    return Encoder(config.vision_latent)
+
+
 class DiffusionPolicy:
     def __init__(self, config: PolicyConfig, device="cuda"):
-        if config.vision_encoder not in ("autoencoder", "none"):
-            raise NotImplementedError(
-                f"vision encoder {config.vision_encoder!r} is not ported")
+        if config.vision_encoder not in (*ENCODERS, "none"):
+            raise ValueError(
+                f"unknown vision encoder {config.vision_encoder!r}")
         self.config = config
         self.device = resolve_device(device)
         self.schedule = S.make_schedule(
@@ -135,7 +159,8 @@ class DiffusionPolicy:
         """Fresh {'unet', 'encoder'} modules on the policy's device, drawn
         on the CPU from `generator` with flax's initializers
         (`DiffusionPolicy.init_params`). encoder_params: a pretrained
-        Encoder, or its flax parameter tree, in place of a fresh one."""
+        encoder module, or its flax parameter tree, in place of a fresh
+        one."""
         cfg = self.config
         cond_dim = cfg.obs_horizon * cfg.observation_dim
         unet = build_model(cfg.model, cond_dim, out_channels=1,
@@ -143,11 +168,14 @@ class DiffusionPolicy:
         params = {"unet": init_module_(unet, generator).to(self.device)}
         if cfg.has_encoder:
             if encoder_params is None:
-                enc = init_module_(Encoder(cfg.vision_latent), generator)
+                enc = init_module_(make_encoder(cfg), generator)
             elif isinstance(encoder_params, torch.nn.Module):
                 enc = encoder_params
             else:
                 enc = encoder_from_jax(encoder_params, "cpu")
+            if not isinstance(enc, ENCODERS[cfg.vision_encoder]):
+                raise ValueError(f"a {type(enc).__name__} is not a "
+                                 f"{cfg.vision_encoder!r} encoder")
             params["encoder"] = enc.to(self.device)
         return params
 

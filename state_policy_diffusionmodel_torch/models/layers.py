@@ -122,6 +122,27 @@ class Conv(nn.Conv2d):
         return super().forward(x).permute(0, 2, 3, 1)
 
 
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax `nn.ConvTranspose` (padding 'SAME', transpose_kernel=False) on
+    NHWC tensors, for a kernel as wide as its stride (the Decoder's 2x2 /
+    stride 2), where 'SAME' gives stride x the input. The weight is (in,
+    out, kh, kw): flax's HWIO kernel flipped in both spatial axes (flax
+    correlates the dilated input with the kernel as it is, torch's
+    transposed conv with the kernel flipped)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int):
+        if kernel_size != stride:
+            raise ValueError("only a kernel as wide as its stride is "
+                             "implemented")
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride)
+
+    def forward(self, x):
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        return super().forward(x).permute(0, 2, 3, 1)
+
+
 class LayerNorm(nn.Module):
     """flax `nn.LayerNorm`: eps 1e-6, fast variance, f32 statistics, output
     in the input's dtype."""
@@ -138,6 +159,39 @@ class LayerNorm(nn.Module):
         var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax `nn.GroupNorm` on NHWC: statistics per (batch, group) over H, W
+    and the group's channels, in at least f32, with the fast variance
+    clamped at 0 and eps 1e-6; the output in the promoted dtype of the
+    input and the parameters, as flax gives it (the input's under amp,
+    where both are bf16)."""
+
+    def __init__(self, num_groups: int, features: int,
+                 eps: float = cuda_ops.GN_EPS):
+        super().__init__()
+        if features % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide "
+                             f"{features} channels")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        B, C = x.shape[0], x.shape[-1]
+        G = self.num_groups
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xg = xf.reshape(B, -1, G, C // G)
+        mean = xg.mean((1, 3))
+        var = ((xg * xg).mean((1, 3)) - mean * mean).clamp_min(0.0)
+        shape = (B,) + (1,) * (x.ndim - 2) + (C,)
+        mean = mean.repeat_interleave(C // G, -1).reshape(shape)
+        mul = torch.rsqrt(var + self.eps).repeat_interleave(C // G, -1)
+        mul = mul.reshape(shape) * self.scale.to(xf.dtype)
+        y = (xf - mean) * mul + self.bias.to(xf.dtype)
+        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
 
 
 class Conv3x3(nn.Module):

@@ -8,15 +8,19 @@ is renamed and its layout mapped:
 
 - conv kernels, HWIO -> OIHW (`kernel` of `nn.Conv`, `conv1_kernel` and
   `conv2_kernel` of DoubleConv);
+- transposed-conv kernels (`kernel` of a module named `ConvTranspose_*`),
+  HWIO flipped in both spatial axes -> (in, out, kh, kw), the weight of
+  `torch.nn.functional.conv_transpose2d` (`models.layers.ConvTranspose`);
 - Dense kernels, (in, out) -> Linear weights (out, in);
 - attention DenseGeneral q/k/v kernels (C, heads, Dh) -> (heads*Dh, C) with
   biases (heads, Dh) -> (heads*Dh,); the out kernel (heads, Dh, C) ->
   (C, heads*Dh).
 
-Every array is cast to float32. Loading is strict: a leaf left over, a
-parameter missing or a shape that differs raises. `params_to_jax` is the
-inverse: the port's modules (or any tensors laid out like their
-parameters, such as Adam's moments) as keystr leaves in the flax layout.
+GroupNorm's `scale` and `bias` keep their names and layout. Every array
+is cast to float32. Loading is strict: a leaf left over, a parameter
+missing or a shape that differs raises. `params_to_jax` is the inverse:
+the port's modules (or any tensors laid out like their parameters, such
+as Adam's moments) as keystr leaves in the flax layout.
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .models import Encoder, UNetFiLM
-from .models.layers import _MHA
+from .models import Encoder, ResNet18GN, UNetFiLM, UNetSimple
+from .models.layers import ConvTranspose, _MHA
 
 _KEY = re.compile(r"\['([^']*)'\]")
 
@@ -70,7 +74,9 @@ def _torch_leaf(path: tuple, arr: np.ndarray):
     *mods, leaf = path
     parent = mods[-1] if mods else ""
     if leaf == "kernel":
-        if arr.ndim == 4:                                   # nn.Conv, HWIO
+        if arr.ndim == 4 and parent.startswith("ConvTranspose_"):
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)     # flipped HWIO
+        elif arr.ndim == 4:                                 # nn.Conv, HWIO
             arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 3 and parent in ("query", "key", "value"):
             arr = arr.reshape(arr.shape[0], -1).T           # (C, H, Dh)
@@ -107,26 +113,43 @@ def load_into(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
     return module
 
 
-def unet_from_jax(tree: dict, device="cuda") -> UNetFiLM:
-    """A UNetFiLM shaped by, and loaded from, the tree under `['unet']`."""
+def unet_from_jax(tree: dict, device="cuda"):
+    """The U-Net shaped by, and loaded from, the tree under `['unet']`: a
+    UNetSimple for a tree with `_CondConcat_0` or without `DownBlock_0`, a
+    UNetFiLM otherwise."""
     dev = resolve_device(device)
     dc0 = tree["DoubleConv_0"]
-    pa = tree["DownBlock_0"]["_PostAffine_0"]
-    unet = UNetFiLM(
-        cond_dim=pa["film_dense"]["kernel"].shape[0],
-        out_channels=tree["Conv_0"]["kernel"].shape[-1],
-        time_dim=pa["time_dense"]["kernel"].shape[0],
-        with_attention="SelfAttention_0" in tree,
-        width=dc0["conv2_kernel"].shape[-1],
-        in_channels=dc0["conv1_kernel"].shape[2])
+    shape = dict(out_channels=tree["Conv_0"]["kernel"].shape[-1],
+                 width=dc0["conv2_kernel"].shape[-1],
+                 in_channels=dc0["conv1_kernel"].shape[2])
+    if "_CondConcat_0" in tree or "DownBlock_0" not in tree:
+        cc = tree.get("_CondConcat_0")
+        unet = UNetSimple(
+            cond_dim=None if cc is None else cc["Dense_0"]["kernel"].shape[0],
+            time_dim=tree["Dense_0"]["kernel"].shape[0], **shape)
+    else:
+        pa = tree["DownBlock_0"]["_PostAffine_0"]
+        unet = UNetFiLM(
+            cond_dim=pa["film_dense"]["kernel"].shape[0],
+            time_dim=pa["time_dense"]["kernel"].shape[0],
+            with_attention="SelfAttention_0" in tree, **shape)
     return load_into(unet, tree).to(dev).eval()
 
 
-def encoder_from_jax(tree: dict, device="cuda") -> Encoder:
-    """An Encoder shaped by, and loaded from, the tree under `['encoder']`."""
+def encoder_from_jax(tree: dict, device="cuda"):
+    """The vision encoder shaped by, and loaded from, the tree under
+    `['encoder']`: a ResNet18GN for a tree with `BasicBlock_0`, the conv-AE
+    Encoder otherwise."""
     dev = resolve_device(device)
-    enc = Encoder(latent_dim=tree["Dense_0"]["kernel"].shape[-1],
-                  channels=tree["Conv_0"]["kernel"].shape[2])
+    if "BasicBlock_0" in tree:
+        n_blocks = sum(k.startswith("BasicBlock_") for k in tree)
+        if n_blocks != 8:
+            raise ValueError(f"a ResNet-18 tree has 8 BasicBlocks, not "
+                             f"{n_blocks}")
+        enc = ResNet18GN(channels=tree["Conv_0"]["kernel"].shape[2])
+    else:
+        enc = Encoder(latent_dim=tree["Dense_0"]["kernel"].shape[-1],
+                      channels=tree["Conv_0"]["kernel"].shape[2])
     return load_into(enc, tree).to(dev).eval()
 
 
@@ -147,6 +170,8 @@ def _jax_leaf(mod: torch.nn.Module, parent, leaf: str, arr: np.ndarray):
     module `mod`, whose parent module is `parent`: `_torch_leaf`
     inverted."""
     heads = parent.num_heads if isinstance(parent, _MHA) else None
+    if leaf == "weight" and isinstance(mod, ConvTranspose):
+        return "kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
     if leaf in ("conv1_kernel", "conv2_kernel"):
         return leaf, arr.transpose(2, 3, 1, 0)
     if leaf == "weight":

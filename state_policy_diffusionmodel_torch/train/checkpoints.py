@@ -25,7 +25,7 @@ import numpy as np
 
 from .. import resolve_device
 from ..data.dataset import load_stats
-from ..diffusion.policy import DiffusionPolicy, PolicyConfig
+from ..diffusion.policy import ENCODERS, DiffusionPolicy, PolicyConfig
 from ..models import MODEL_REGISTRY
 from ..params_from_jax import (
     load_into, load_npz, params_from_jax, params_to_jax,
@@ -255,14 +255,19 @@ def load_run(run_dir: str, device="cuda", ema: bool = False,
             f"no checkpoint under {run_dir}/{subdir}"
             + ("" if epoch is None else f" for epoch {epoch}"))
     params = params_from_jax(load_npz(os.path.join(ckpt, "params.npz")), dev)
-    unet = params["unet"]
     if cfg.model not in MODEL_REGISTRY:
-        raise NotImplementedError(f"model {cfg.model!r} is not ported")
-    want = (64 if cfg.model_width is None else cfg.model_width, cfg.time_dim,
-            MODEL_REGISTRY[cfg.model]["with_attention"], cfg.has_encoder)
-    got = (unet.width, unet.time_dim, unet.with_attention, "encoder" in params)
+        raise ValueError(f"unknown model {cfg.model!r}")
+    cls, kw, default_width = MODEL_REGISTRY[cfg.model]
+    unet, enc = params["unet"], params.get("encoder")
+    want = (cls.__name__, default_width if cfg.model_width is None
+            else cfg.model_width, cfg.time_dim, kw.get("with_attention"),
+            ENCODERS[cfg.vision_encoder].__name__ if cfg.has_encoder
+            else None)
+    got = (type(unet).__name__, unet.width, unet.time_dim,
+           getattr(unet, "with_attention", None),
+           None if enc is None else type(enc).__name__)
     if got != want:
-        raise ValueError(f"{ckpt} does not match hparams.yaml: (width, "
+        raise ValueError(f"{ckpt} does not match hparams.yaml: (net, width, "
                          f"time_dim, attention, encoder) {got} vs {want}")
     stats = load_stats(os.path.join(run_dir, "STATS.pkl"))
     return DiffusionPolicy(cfg, dev), params, stats

@@ -2,10 +2,11 @@
 
 Counterpart of the parts of `state_policy_diffusionmodel_tpu/utils/
 plotting.py` that the port's training hook and eval suite call: the
-prediction-overlay and action-comparison figures and figure-to-image
-export. matplotlib (and the Pillow it depends on) is imported only when a
-figure is made, since the GPU machine has neither. The denoising
-animations and grids wait for the CLIs that use them.
+prediction-overlay and action-comparison figures, figure-to-image export
+and the autoencoder CLI's reconstruction grid. matplotlib (and the Pillow
+it depends on) is imported only when a figure is made, since the GPU
+machine has neither. The denoising animations wait for the CLIs that use
+them.
 """
 
 from __future__ import annotations
@@ -84,3 +85,22 @@ def plot_action_comparison(actions_pred, actions_gt, inpaint_horizon: int,
     axes[0].legend()
     fig.suptitle(title)
     return fig
+
+
+def image_grid(images: np.ndarray, path: str, ncols: int = 8) -> str:
+    """Save a grid of (N, H, W, 3) float [0, 1] images (the reference's
+    eval_autoencoder.py reconstruction check)."""
+    plt = _plt()
+    n = len(images)
+    nrows = (n + ncols - 1) // ncols
+    fig, axes = plt.subplots(nrows, ncols, figsize=(1.4 * ncols, 1.4 * nrows))
+    axes = np.atleast_2d(axes)
+    for i in range(nrows * ncols):
+        ax = axes[i // ncols, i % ncols]
+        ax.axis("off")
+        if i < n:
+            ax.imshow(np.clip(images[i], 0, 1))
+    fig.tight_layout()
+    fig.savefig(path, dpi=100)
+    plt.close(fig)
+    return path

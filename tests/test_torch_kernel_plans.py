@@ -34,12 +34,48 @@ _DC = [(16, 4, 64, 64), (16, 4, 64, 128), (8, 2, 128, 128), (8, 2, 128, 256),
 FORWARD_CONVS = [c for H, W, cin, cout in _DC
                  for c in ((H, W, cin, cout), (H, W, cout, cout))]
 TRAIN_CONVS = [(32, 8, 64, 64)] + FORWARD_CONVS
+# (H, W, Cin, Cmid = Cout) of the 12 DoubleConvs of a UNetSimple forward
+# at width 16 with the 1,350-wide cond that take the conv path at B=256
+# (DoubleConv_1..12; DoubleConv_0 has Cin 1), the residual ones first in
+# each pair, and its 24 K3 calls
+SIMPLE_DC = [(16, 4, 16, 16), (16, 4, 16, 32), (8, 2, 64, 64),
+             (8, 2, 64, 128), (4, 1, 160, 160), (4, 1, 160, 256),
+             (8, 2, 448, 448), (8, 2, 448, 128), (16, 4, 224, 224),
+             (16, 4, 224, 64), (32, 8, 112, 112), (32, 8, 112, 32)]
+SIMPLE_CONVS = [c for H, W, cin, cout in SIMPLE_DC
+                for c in ((H, W, cin, cout), (H, W, cout, cout))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,W,cin,cout", sorted(set(FORWARD_CONVS)))
 def test_conv3x3_plan_tiles_splits_and_workspaces(H, W, cin, cout, dtype):
     assert len(FORWARD_CONVS) == 30 and len(set(FORWARD_CONVS)) == 17
+    p = _check_conv3x3_plan(H, W, cin, cout, dtype)
+    # the SMs filled (at least 127 of 132: the power-of-two grid nearest a
+    # wave) where the slices allow a split
+    most = max(1, p.slices // cuda_ops._CONV_MIN_SLICES[(p.mma, p.taps)])
+    assert p.blocks >= 0.96 * N_SM or p.splits == most
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,cin,cout", sorted(set(SIMPLE_CONVS)))
+def test_conv3x3_plan_at_unet_simple_shapes(H, W, cin, cout, dtype):
+    """The same rules at UNetSimple's widths (Cin 16, 32, 64, 112, 128,
+    160, 224, 256, 448: none of 112, 160, 224 and 448 a multiple of 64),
+    all on the tensor cores in bf16. The grid fills the card as far as
+    the split rule goes: it doubles the parts while the grid stays within
+    the blocks the SMs hold at once (`room`) and each part keeps its least
+    slices, so 112 tiles of 448 channels at 8x2 stay 112 blocks (85% of a
+    wave)."""
+    assert len(SIMPLE_CONVS) == 24 and len(set(SIMPLE_CONVS)) == 17
+    p = _check_conv3x3_plan(H, W, cin, cout, dtype)
+    assert p.mma == (dtype == torch.bfloat16)
+    most = max(1, p.slices // cuda_ops._CONV_MIN_SLICES[(p.mma, p.taps)])
+    room = (N_SM if p.bm == 256 else 2 * N_SM) if p.mma else 3 * N_SM // 2
+    assert 2 * p.splits > most or p.blocks * 2 > room
+
+
+def _check_conv3x3_plan(H, W, cin, cout, dtype):
     M = B * H * W
     p = cuda_ops.conv3x3_plan(B, H, W, cin, cout, dtype, N_SM)
     # bf16 on the tensor cores at every r5blend shape; three taps at W = 1
@@ -54,15 +90,12 @@ def test_conv3x3_plan_tiles_splits_and_workspaces(H, W, cin, cout, dtype):
              for z in range(p.splits)]
     assert all(parts) and sum(map(len, parts)) == p.slices
     assert p.slices == -(-cin // p.ck) and p.cin_pad == p.slices * p.ck
-    # the SMs filled (at least 127 of 132: the power-of-two grid nearest a
-    # wave) where the slices allow a split
-    most = max(1, p.slices // cuda_ops._CONV_MIN_SLICES[(p.mma, p.taps)])
-    assert p.blocks >= 0.96 * N_SM or p.splits == most
     # workspaces: the repacked weights [tap][cin_pad][cout_pad], and one f32
     # partial sum per output element per part
     assert p.cout_pad == p.n_tiles * p.bn
     assert p.wt_elems == 9 * p.cin_pad * p.cout_pad
     assert p.ws_elems == (p.splits * M * cout if p.splits > 1 else 0)
+    return p
 
 
 def test_conv3x3_plan_splits_only_to_fill_the_card():
@@ -236,7 +269,9 @@ def _gn_owners(plan, HW, C):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,HW,C", [(256, H * W, C) for H, W, C in GN_SHAPES]
-                         + GN_EDGES)
+                         + GN_EDGES + [(256, H * W, C) for H, W, C in sorted(
+                             {(H, W, c) for H, W, _, c in SIMPLE_DC}
+                             - set(GN_SHAPES))])
 def test_gn_act_plan_owns_every_value_once_and_fits(B, HW, C, dtype):
     """Every value of a batch element is one thread's, no pass is empty;
     the grid holds every batch element (packed teams, the last CTA's teams

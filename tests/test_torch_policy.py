@@ -325,7 +325,9 @@ def test_port_sources_import_no_jax():
             "utils/printing.py", "cli/train_policy.py", "control/pid.py",
             "control/drivers.py", "data/collect.py", "eval/rollout.py",
             "eval/suite.py", "train/sample_viz.py", "utils/plotting.py",
-            "cli/generate_data.py", "cli/evaluate.py"} <= names
+            "cli/generate_data.py", "cli/evaluate.py", "models/resnet.py",
+            "models/autoencoder.py", "train/autoencoder.py",
+            "cli/train_autoencoder.py"} <= names
     bad = {str(f.relative_to(REPO)): r for f in files
            for r in _imported_roots(f) if r in _FORBIDDEN}
     assert not bad
@@ -385,6 +387,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     # the env, the renderer's inputs and the bench
     from state_policy_diffusionmodel_torch import bench, physics, track
     from state_policy_diffusionmodel_torch.cli import train_policy
+    from state_policy_diffusionmodel_torch.cli import (
+        train_autoencoder as cli_train_autoencoder,
+    )
+    from state_policy_diffusionmodel_torch.train import train_autoencoder
     from state_policy_diffusionmodel_torch.data import DeviceWindowDataset
     from state_policy_diffusionmodel_torch.envs import vector
 
@@ -409,6 +415,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: DeviceWindowDataset(None),
         lambda: train_policy.main(["--dataset_name", "none",
                                    "--no_sample_viz"]),
+        # the autoencoder's trainer and CLI
+        lambda: train_autoencoder(np.zeros((2, 96, 96, 3), np.float32),
+                                  "none"),
+        lambda: cli_train_autoencoder.main(["--dataset", "none"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

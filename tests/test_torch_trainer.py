@@ -3,7 +3,9 @@ the hparams text, a tiny `Trainer.fit` with resume, and the training CLI.
 
 Policies run at model_width=8 with the r5blend horizons on synthetic
 episodes (96x96 uint8 frames) written as zarr stores; nothing here
-compiles JAX. Schedules and the hparams round trip are exact.
+compiles JAX (the JAX package reads the CLI's ResNet18-GN and UNetSimple
+runs through `jax.eval_shape` and its npz loader). Schedules and the
+hparams round trip are exact.
 """
 
 import dataclasses
@@ -151,8 +153,6 @@ def test_cli_trains_on_cpu_and_refuses_what_is_not_ported(tmp_path):
             "--ema_decay", "0.9995", "--device_data", "--no_early_stop",
             "--device", "cpu"]
     for extra, what in ((["--tensorboard"], "TensorBoard"),
-                        (["--model", "UNet"], "UNetSimple"),
-                        (["--vision_encoder", "resnet18"], "ResNet18GN"),
                         (["--profile_dir", "p"], "profile")):
         with pytest.raises(NotImplementedError, match=what):
             tcli.main(args + ["--no_sample_viz"] + extra)
@@ -188,3 +188,52 @@ def test_cli_trains_on_cpu_and_refuses_what_is_not_ported(tmp_path):
             torch.Generator(), encoder_params=tree)["encoder"]})
     for k, v in got.items():
         np.testing.assert_array_equal(v, leaves[k])
+
+
+@pytest.mark.parametrize("extra,net,encoder", [
+    (["--vision_encoder", "resnet18", "--train_encoder"], "UNetFiLM",
+     "ResNet18GN"),
+    (["--model", "UNet"], "UNetSimple", "Encoder")])
+def test_cli_trains_resnet_and_unet_simple_runs_both_packages_load(
+        tmp_path, extra, net, encoder):
+    """One epoch through the CLI with a trained ResNet18GN encoder, and
+    with UNetSimple (short horizons, batch 4, so a CPU epoch is a few
+    steps); the run loads strictly through the port's load_run, and the
+    JAX package reads its hparams and every leaf of its checkpoint."""
+    import jax
+
+    from state_policy_diffusionmodel_tpu import diffusion as jd
+    from state_policy_diffusionmodel_tpu.train import checkpoints as jck
+
+    _episodes(str(tmp_path / "ds.zarr"), seed=2, lengths=(40, 36))
+    args = ["--dataset_dir", str(tmp_path), "--dataset_name", "ds.zarr",
+            "--out_dir", str(tmp_path / "runs"), "--version", "v",
+            "--batch_size", "4", "--n_epochs", "1", "--model_width", "8",
+            "--obs_horizon", "2", "--pred_horizon", "6", "--step_size", "2",
+            "--no_early_stop", "--no_sample_viz", "--device", "cpu"] + extra
+    res = tcli.main(args)
+    run = str(tmp_path / "runs" / "v")
+    assert res["step"] >= 1
+    assert np.isfinite([e["val_loss"] for e in _events(run)
+                        if "val_loss" in e]).all()
+    pol, params, _ = tck.load_run(run, "cpu")
+    assert (type(params["unet"]).__name__,
+            type(params["encoder"]).__name__) == (net, encoder)
+    hp = jck.load_hparams(os.path.join(run, "hparams.yaml"))
+    jcfg = jd.PolicyConfig(**{k: hp[k] for k in tck._CONFIG_KEYS})
+    assert jcfg.observation_dim == pol.config.observation_dim
+    like = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), jax.eval_shape(
+        jd.DiffusionPolicy(jcfg).init_params, jax.random.key(0)))
+    loaded = jck.load_checkpoint(tck.latest_checkpoint(run), like)
+    flat = {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+            jax.tree_util.tree_flatten_with_path(loaded)[0]}
+    mine = params_to_jax(params)
+    assert sorted(flat) == sorted(mine)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(v, mine[k], err_msg=k)
+    if "--train_encoder" in extra:
+        # the encoder trained: its weights moved from the initial draw
+        init = td.DiffusionPolicy(pol.config, "cpu").init_params(
+            torch.Generator().manual_seed(42))["encoder"]
+        assert any(not torch.equal(a, b) for a, b in zip(
+            init.parameters(), params["encoder"].parameters()))
