@@ -151,10 +151,39 @@ Phases, each printed with its seconds:
               AE_TOL; two epochs of cli/train_autoencoder.py on the
               collected frames (the val loss falling); cli/train_policy.py
               --encoder_ckpt of that run keeps its encoder;
+  9. native   the port's host library (the C++ window gather, built with
+              g++): WindowDataset.batch of 256 windows of the collected
+              store equal to the numpy plain version's, array for array;
+              the ms of a batch each way;
+  sample      cli/sample.py's computation: r5blend (EMA) on a validation
+              window of the collected store, DDPM (all 1,000 steps),
+              DDIM-10 leading and trailing and DPM++-10 at one x_T: the
+              history (steps+1, 1, 31, 5) finite, its last row the sample
+              without history, exactly 5 K1 launches a U-Net forward and no
+              other kernel, within ACTION_TOL of the plain attention path;
+              seconds each;
+  run_predictions  cli/run_predictions.py's computation: r5blend (EMA), one
+              env on track 42; 150 frames with the lane follower driving
+              (a DDIM-10 prediction every 50 frames once the ring is
+              full), then 100 with the policy driving (a denoise every 5):
+              one K2 launch a frame and the reset's, 50 K1 a denoise,
+              nothing else; red overlay pixels in the last frame; the
+              frames saved as .npy; frames/s;
+  mfu         cli/mfu.py's rows: the denoiser forward in bf16 at B=256 on
+              the default conv path and on the conv kernels (K1; K3-K5),
+              the train step at B=16 in fp32 and amp; exact launches, every
+              row's FLOP/s below the card's bf16 peak;
+  profile     cli/train_policy.py --profile_dir over an epoch of two train
+              steps, and bench --smoke --profile-dir in policy mode: each
+              writes one Chrome trace, with K1's kernel among its device
+              events;
 Then one line holds the kernels as JSON (with the policy, env, loop,
-collect, training, eval, UNetSimple, r4rn and autoencoder readings; the
-K1-K6 entries with `launches_r4rn`, K3-K5 with `launches_unet_simple` and
-their UNetSimple sums; each kernel's sums over one forward
+collect, training, eval, UNetSimple, r4rn, autoencoder, native, sample,
+run_predictions, mfu and profile readings; the K1-K6 entries with
+`launches_r4rn`, K3-K5 with `launches_unet_simple` and their UNetSimple
+sums; K1 with `launches_sample_ddpm`, `launches_run_predictions` and
+`launches_mfu`, K2 with `launches_run_predictions`, K3-K5 with
+`launches_mfu`; each kernel's sums over one forward
 or step in fp32, and in bf16 under "bf16"), one the card's name and power
 limit, and the last line is {"ok": true, "device": {...}}. Any failed
 check exits non-zero first.
@@ -2300,6 +2329,305 @@ def autoencoder_phase(device, counts, work):
     return out
 
 
+# the slice of the remaining entry points: the native window gather, the
+# sampling CLI, the live demo, the MFU table and the profiler
+NATIVE_BATCH, NATIVE_REPEATS = 256, 5
+# (sampler, --num_inference_steps, spacing): DDPM runs all 1,000 steps of
+# r5blend's schedule whatever --num_inference_steps says, as in JAX
+SAMPLE_CASES = [("DDPM", 100, "leading"), ("DDIM", 10, "leading"),
+                ("DDIM", 10, "trailing"), ("DPMPP", 10, "trailing")]
+# cli/run_predictions.py: one env on track 42 (built on the host), the
+# lane follower driving for RP_PID_FRAMES frames, then a run in which the
+# policy drives for RP_POLICY_FRAMES frames; --predict_every 50, DDIM-10
+RP_TRACK, RP_PID_FRAMES, RP_POLICY_FRAMES = 42, 150, 100
+# cli/mfu.py's rows: the denoiser forward at B=256 on both conv paths and
+# the train step at B=16, fp32 and amp
+MFU_BATCH, MFU_TRAIN_BATCH = 256, 16
+# the profiler: cli/train_policy.py --profile_dir over one epoch of two
+# steps (two collected episodes: 328 training windows at B=128), and
+# bench --smoke --profile-dir in policy mode
+PROFILE_TRAIN = ["--batch_size", "128", "--n_epochs", "1", "--no_early_stop",
+                 "--no_sample_viz", "--device_data", "--encoder_ckpt",
+                 RUN_DIR]
+PROFILE_BENCH = ["--mode", "policy", "--smoke", "--run_dir", RUN_DIR]
+
+
+def native_phase(work):
+    """WindowDataset.batch of 256 windows of the collected store through
+    the host library (C++ gather and normalization) against the same batch
+    through the numpy plain versions: every array equal; each path's
+    median ms over NATIVE_REPEATS batches."""
+    from types import SimpleNamespace
+
+    from state_policy_diffusionmodel_torch.data import dataset as D
+    from state_policy_diffusionmodel_torch.data import native
+
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    ds = D.WindowDataset(os.path.join(work, "card.zarr"), 10, 30, 5)
+    idx = np.random.default_rng(0).permutation(len(ds))[:NATIVE_BATCH]
+    plain = SimpleNamespace(gather_windows=D.gather_windows,
+                            normalize_positions=D.normalize_positions)
+    got = ds.batch(idx, return_translations=True)
+    with mock.patch.object(D, "native", plain):
+        want = ds.batch(idx, return_translations=True)
+    for k in got[0]:
+        if not np.array_equal(got[0][k], want[0][k]):
+            raise Failed(f"native batch: {k} differs from the numpy batch")
+    if not np.array_equal(got[1], want[1]):
+        raise Failed("native batch: the translations differ")
+
+    def median_ms(fn):
+        times = []
+        for _ in range(NATIVE_REPEATS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    native_ms = median_ms(lambda: ds.batch(idx))
+    with mock.patch.object(D, "native", plain):
+        numpy_ms = median_ms(lambda: ds.batch(idx))
+    print(f"  host library built or loaded in {build_s:.2f} s "
+          f"({native.N_THREADS} threads); WindowDataset.batch of "
+          f"{NATIVE_BATCH} windows x {ds.sequence_len} frames of "
+          f"card.zarr: every array equal to the numpy plain version's; "
+          f"{native_ms:.2f} ms a batch native, {numpy_ms:.2f} ms numpy "
+          f"(median of {NATIVE_REPEATS}, host wall time)", flush=True)
+    return dict(batch=NATIVE_BATCH, native_ms=native_ms, numpy_ms=numpy_ms,
+                threads=native.N_THREADS, build_seconds=build_s)
+
+
+def sample_phase(device, work, counts, cuda_ops, seed):
+    """cli/sample.py's computation on the card: r5blend's EMA weights on the
+    first validation window of the collected store (a seeded split), each
+    of SAMPLE_CASES at one x_T: the history's shape and finiteness, its
+    last row equal to the call without history, K1 launched 5 times a U-Net
+    forward and nothing else, within ACTION_TOL of the same history on the
+    plain attention path; the seconds of each sampling."""
+    from state_policy_diffusionmodel_torch.cli import sample as S
+    from state_policy_diffusionmodel_torch.train import load_run
+
+    zero_counts, read_counts = counts
+    policy, params, stats = load_run(RUN_DIR, device, ema=True)
+    cfg = policy.config
+    batch = S.load_window(policy, stats, work, "card.zarr", split_seed=seed)
+    x_T = policy.init_noise(1, torch.Generator().manual_seed(seed))
+    S.sample_history(policy, params, batch, "DDIM", 10, init_noise=x_T)
+    out = {}
+    for name, n, spacing in SAMPLE_CASES:
+        run = lambda: S.sample_history(policy, params, batch, name, n,
+                                       spacing, seed=seed, init_noise=x_T)
+        torch.cuda.synchronize()
+        # the sampling path: counts to 0 just before, read just after
+        zero_counts()
+        t0 = time.perf_counter()
+        hist = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = read_counts()
+        steps = cfg.noise_steps if name == "DDPM" else n
+        tag = f"{name}-{steps} {spacing}" if name == "DDIM" \
+            else f"{name}-{steps}"
+        if tuple(hist.shape) != (steps + 1, 1, cfg.horizon,
+                                 cfg.prediction_dim) or \
+                not bool(torch.isfinite(hist).all()):
+            raise Failed(f"{tag}: history {tuple(hist.shape)}, or not "
+                         "finite")
+        last = policy.sample(params, batch, torch.Generator().manual_seed(
+            seed), sampler=S.SAMPLERS[name], num_inference_steps=n,
+            ddim_spacing=spacing, init_noise=x_T)
+        if not torch.equal(last, hist[-1]):
+            raise Failed(f"{tag}: the history's last row differs from the "
+                         "sample without history")
+        want = {"K1": 5 * steps, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                "K6": 0}
+        if got != want:
+            raise Failed(f"{tag}: launches {got}, expected {want}")
+        with mock.patch.object(cuda_ops, "attention_core",
+                               cuda_ops.attention_core_ref):
+            plain = run()
+        d = (hist - plain).abs().max().item()
+        out[tag] = dict(steps=steps, seconds=secs,
+                        ms_a_step=secs * 1e3 / steps, launches=got,
+                        vs_plain_max=d)
+        print(f"  {tag}: history {tuple(hist.shape)} in {secs:.3f} s "
+              f"({secs * 1e3 / steps:.2f} ms a step, B=1); launches {got}; "
+              f"vs the plain attention path {d:.3e} (tol {ACTION_TOL})",
+              flush=True)
+        if not d <= ACTION_TOL:
+            raise Failed(f"{tag}: the K1 path is {d} from the plain path")
+    return out
+
+
+def overlay_pixels(raster, bank, out):
+    """Pixels of the last frame's state where the overlay draws red and the
+    frame without it does not (two renders, outside any counted run)."""
+    state = out["state"]
+    with_ov = raster.render(state.car, bank, overlay=out["overlay"])[0]
+    without = raster.render(state.car, bank)[0]
+    red = torch.tensor(raster.PALETTE_U8[raster.L_POINTS],
+                       device=with_ov.device)
+    return int(((with_ov[0] == red).all(-1)
+                & ~(without[0] == red).all(-1)).sum())
+
+
+def run_predictions_phase(device, work, counts, seed):
+    """cli/run_predictions.py's computation on the card: r5blend (EMA) and
+    one env on track RP_TRACK; the lane follower drives RP_PID_FRAMES
+    frames with a prediction every 50 once the 50-frame ring is full, then
+    the policy drives RP_POLICY_FRAMES frames (a denoise every 5): one K2
+    launch a frame and the reset's, 50 K1 a denoise (DDIM-10), nothing
+    else; overlay pixels in the last frame; the frames saved as .npy in the
+    work directory; frames/s."""
+    from state_policy_diffusionmodel_torch.cli import run_predictions as RP
+    from state_policy_diffusionmodel_torch.render import raster
+    from state_policy_diffusionmodel_torch.train import load_run
+
+    zero_counts, read_counts = counts
+    policy, params, stats = load_run(RUN_DIR, device, ema=True)
+    t0 = time.perf_counter()
+    bank = RP.track_bank(RP_TRACK, device)
+    build_s = time.perf_counter() - t0
+    ring = policy.config.obs_horizon * policy.config.step_size
+    out_all = {"track_build_seconds": build_s}
+    for drive, steps in (("pid", RP_PID_FRAMES), ("policy", RP_POLICY_FRAMES)):
+        torch.cuda.synchronize()
+        # the demo's path: counts to 0 just before, read just after
+        zero_counts()
+        t0 = time.perf_counter()
+        out = RP.run_predictions(policy, params, stats, bank, steps=steps,
+                                 predict_every=50, drive=drive, seed=seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = read_counts()
+        frames = out["frames"]
+        every = policy.config.step_size if drive == "policy" else 50
+        denoises = len([k for k in range(len(frames))
+                        if k >= ring - 1 and k % every == 0])
+        want = {"K1": 5 * 10 * denoises, "K2": len(frames) + 1, "K3": 0,
+                "K4": 0, "K5": 0, "K6": 0}
+        if got != want or out["denoises"] != denoises:
+            raise Failed(f"run_predictions {drive}: launches {got} and "
+                         f"{out['denoises']} denoises, expected {want} and "
+                         f"{denoises}")
+        if frames.shape != (steps, 96, 96, 3) or frames.dtype != np.uint8 \
+                or not np.isfinite(out["actions"]).all():
+            raise Failed(f"run_predictions {drive}: frames {frames.shape} "
+                         f"{frames.dtype}, or actions not finite")
+        red = overlay_pixels(raster, bank, out)
+        path = os.path.join(work, f"run_predictions_{drive}.npy")
+        np.save(path, frames)
+        if not np.array_equal(np.load(path), frames):
+            raise Failed(f"{path} reads back otherwise")
+        out_all[drive] = dict(frames=len(frames), seconds=secs,
+                              frames_per_s=len(frames) / secs,
+                              denoises=denoises, launches=got,
+                              overlay_pixels=red,
+                              predictions=[k for k, _ in out["predictions"]])
+        print(f"  --drive {drive}: {len(frames)} frames in {secs:.3f} s = "
+              f"{len(frames) / secs:.1f} frames/s; {denoises} denoises at "
+              f"frames {[k for k, _ in out['predictions']]} (drawn); "
+              f"launches {got}; {red} overlay pixels in the last frame; "
+              f"saved {os.path.basename(path)}", flush=True)
+        if red == 0:
+            raise Failed(f"run_predictions {drive}: no overlay pixel")
+    return out_all
+
+
+def mfu_phase(device, counts, cuda_ops, smi):
+    """cli/mfu.py's rows on the card: the denoiser forward in bf16 at
+    B=MFU_BATCH on the default conv path and on the conv kernels, the
+    train step at B=MFU_TRAIN_BATCH in fp32 and amp (default path); every
+    row's FLOP/s below the card's bf16 peak; each call's launches."""
+    from state_policy_diffusionmodel_torch.cli import mfu
+
+    zero_counts, read_counts = counts
+    out = {"card": smi}
+    per_run = 5 * mfu.K_INNER * (5 + 1)       # K1 a forward, warm-up + 5
+    for tag, batches, train, amp, path in (
+            ("forward, default path", (MFU_BATCH,), 0, False, "xla9"),
+            ("forward, conv kernels", (MFU_BATCH,), 0, False, "pallas"),
+            ("train step fp32", (), MFU_TRAIN_BATCH, False, "xla9"),
+            ("train step amp", (), MFU_TRAIN_BATCH, True, "xla9")):
+        torch.cuda.synchronize()
+        zero_counts()
+        res = mfu.mfu_rows(device, batches, train, amp, conv_path=path,
+                           log=lambda m: print(f"  {m}", flush=True))
+        torch.cuda.synchronize()
+        got = read_counts()
+        row = res["rows"][0]
+        want = {"K1": per_run, "K2": 0, "K6": 0}
+        if path == "pallas":
+            want.update(K3=6 * per_run, K4=6 * per_run, K5=3 * per_run)
+        else:
+            want.update(K3=0, K4=0, K5=0)
+        if got != want:
+            raise Failed(f"mfu {tag}: launches {got}, expected {want}")
+        if not 0 < row["tflops_per_sec"] * 1e12 < res["peak_flops"]:
+            raise Failed(f"mfu {tag}: {row['tflops_per_sec']} TFLOP/s is not "
+                         f"below the peak {res['peak_flops'] / 1e12}")
+        out[tag] = dict(row, launches=got, peak_flops=res["peak_flops"])
+    print(f"  card: {smi}", flush=True)
+    return out
+
+
+def trace_kernel_names(path):
+    """The names of the device kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def profile_phase(device, work):
+    """The profiler on the card: cli/train_policy.py --profile_dir over an
+    epoch of two train steps (the first two collected episodes, B=128,
+    r5blend's encoder), and bench --smoke --profile-dir in policy mode on
+    r5blend: each trace file written, with K1's kernel among its device
+    events."""
+    from state_policy_diffusionmodel_torch import bench
+    from state_policy_diffusionmodel_torch.cli import train_policy
+    from state_policy_diffusionmodel_torch.data import (
+        ReplayBuffer, load_zarr, save_zarr,
+    )
+
+    buf = load_zarr(os.path.join(work, "card.zarr"))
+    n = int(buf.episode_ends[1])
+    save_zarr(ReplayBuffer({k: v[:n] for k, v in buf.data.items()},
+                           buf.episode_ends[:2]),
+              os.path.join(work, "two.zarr"))
+    out = {}
+    for tag, call in (
+            ("train_policy --profile_dir", lambda d: train_policy.main([
+                "--dataset_dir", work, "--dataset_name", "two.zarr",
+                "--out_dir", os.path.join(work, "prof_runs"), "--version",
+                "p", *PROFILE_TRAIN, "--profile_dir", d])),
+            ("bench --smoke --profile-dir", lambda d: bench.main([
+                *PROFILE_BENCH, "--profile-dir", d]))):
+        d = os.path.join(work, "prof_" + tag.split()[0])
+        t0 = time.perf_counter()
+        res = call(d)
+        secs = time.perf_counter() - t0
+        traces = sorted(p for p in os.listdir(d) if p.endswith(".json"))
+        if len(traces) != 1:
+            raise Failed(f"{tag}: traces {traces} in {d}")
+        path = os.path.join(d, traces[0])
+        names = trace_kernel_names(path)
+        k1 = sorted(n for n in names if "attention_core_kernel" in n)
+        print(f"  {tag}: {secs:.2f} s, trace {traces[0]} "
+              f"({os.path.getsize(path) / 2**20:.1f} MiB), "
+              f"{len(names)} kernel names, K1's: {k1}", flush=True)
+        if not k1:
+            raise Failed(f"{tag}: K1's kernel is not among the trace's "
+                         "device events")
+        out[tag] = dict(seconds=secs, trace_mib=os.path.getsize(path) / 2**20,
+                        kernel_names=len(names), k1_names=k1)
+        if tag.startswith("train"):
+            out[tag]["steps"] = int(res["step"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2840,6 +3168,16 @@ def main() -> int:
                                             work)
         with phase("autoencoder"):
             autoencoder = autoencoder_phase(device, counts, work)
+        with phase("native"):
+            native_run = native_phase(work)
+        with phase("sample"):
+            sampled = sample_phase(device, work, counts, cuda_ops, args.seed)
+        with phase("run_predictions"):
+            demo = run_predictions_phase(device, work, counts, args.seed)
+        with phase("mfu"):
+            mfu_run = mfu_phase(device, counts, cuda_ops, smi)
+        with phase("profile"):
+            profiled = profile_phase(device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2860,6 +3198,12 @@ def main() -> int:
         "launches": loop["fp32"]["k1_launches"],
         "launches_eval": evaluated["launches"]["K1"],
         "launches_r4rn": r4rn["closed_loop"]["fp32"]["launches"]["K1"],
+        # cli/sample.py's DDPM (1,000 forwards at B=1), cli/run_predictions'
+        # two runs, cli/mfu.py's forward row (default path)
+        "launches_sample_ddpm": sampled["DDPM-1000"]["launches"]["K1"],
+        "launches_run_predictions": demo["pid"]["launches"]["K1"]
+        + demo["policy"]["launches"]["K1"],
+        "launches_mfu": mfu_run["forward, default path"]["launches"]["K1"],
         # one U-Net forward's five calls at B=256, fp32 (the main path)
         "max_abs_err": max(r["max_abs_err"] for r in fp32),
         "max_abs_err_on_policy": runs["fp32"]["k1_on_policy"]["max_abs_err"],
@@ -2895,6 +3239,8 @@ def main() -> int:
         "launches_env_render": envs_run["env_render"]["k2_launches"],
         "launches_collect": collected["launches"]["K2"],
         "launches_r4rn": r4rn["closed_loop"]["fp32"]["launches"]["K2"],
+        "launches_run_predictions": demo["pid"]["launches"]["K2"]
+        + demo["policy"]["launches"]["K2"],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2_main["ms"],
         "plain_ms": k2_main["plain_ms"],
@@ -2917,6 +3263,8 @@ def main() -> int:
                         r["residual"]))):
         entry = next(e for e in kernels if e["name"] == name)
         entry["launches_r4rn"] = r4rn_conv[k]
+        entry["launches_mfu"] = mfu_run["forward, conv kernels"][
+            "launches"][k]
         entry["launches_unet_simple"] = simple["fp32"]["launches"][k]
         entry["unet_simple"] = dict(
             fp32=per_forward(recs, calls, key),
@@ -2949,7 +3297,9 @@ def main() -> int:
                       "closed_loop": loop, "collect": collected,
                       "training": training, "eval": evaluated,
                       "unet_simple": simple, "r4rn": r4rn,
-                      "autoencoder": autoencoder}))
+                      "autoencoder": autoencoder, "native": native_run,
+                      "sample": sampled, "run_predictions": demo,
+                      "mfu": mfu_run, "profile": profiled}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

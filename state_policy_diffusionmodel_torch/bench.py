@@ -24,8 +24,19 @@ Modes, metric names and driving metrics follow the JAX package's bench.py
 Each mode prints one JSON line. Times are host wall times of work that ends
 in torch.cuda.synchronize(); the best of --repeats runs counts, after one
 warm-up run. The bench runs on the GPU; `--device cpu` is for small smoke
-runs only. Without --run_dir the policy mode loads artifacts/r5blend_best
-(the JAX bench's random-init weights are not ported).
+runs only.
+
+As in the JAX bench: without --run_dir the policy mode runs random-init
+weights (`init_params` from a generator seeded 0; the same FLOPs as a
+trained run, no stats, so raw observations), and --epoch picks a
+checkpoint of --run_dir; --interp-actions interpolates the queue's rows 0
+and 1 between denoises; --profile-dir writes a `utils.profiling.trace`
+(a torch.profiler Chrome trace) of one more measured run; --smoke runs
+tiny shapes (8 envs, 20 steps, one repeat, a 2-track bank; the policy mode
+takes envs // 16, at least 1); and the SPDM_BENCH_DEADLINE watchdog
+(seconds; default 95 in env_render, else off) prints the JSON line of the
+runs finished so far, marked "partial", when the deadline passes, and
+exits.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import dataclasses
 import json
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -47,12 +59,51 @@ from .diffusion import (
 from .envs import vector
 from .track import load_or_build_bank
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DEFAULT_RUN = os.path.join(REPO, "artifacts", "r5blend_best")
-
 
 def _log(msg):
     print(msg, file=sys.stderr, flush=True)
+
+
+# What the deadline watchdog prints: every finished run's time, and how to
+# turn a list of them into the bench's JSON line.
+_PARTIAL = {"times": [], "fmt": None, "done": False, "printed": False}
+_PRINT_LOCK = threading.Lock()
+
+
+def _register_partial(fmt):
+    """fmt(times: list[float]) -> the JSON line's dict."""
+    _PARTIAL["fmt"] = fmt
+    _PARTIAL["times"] = []
+
+
+def _emit(out: dict) -> bool:
+    """Print the bench's JSON line once, whichever of the main thread and
+    the watchdog gets there first."""
+    with _PRINT_LOCK:
+        if _PARTIAL["printed"]:
+            return False
+        _PARTIAL["printed"] = True
+        print(json.dumps(out), flush=True)
+        return True
+
+
+def _start_watchdog(deadline_s: float, t0: float):
+    """When deadline_s seconds have passed since t0, print the line of the
+    runs finished so far (marked "partial") as soon as there is one, and
+    exit."""
+    def watch():
+        while not (_PARTIAL["done"] or _PARTIAL["printed"]):
+            if time.monotonic() < t0 + deadline_s or not _PARTIAL["times"] \
+                    or _PARTIAL["fmt"] is None:
+                time.sleep(0.25)
+                continue
+            out = _PARTIAL["fmt"](list(_PARTIAL["times"]))
+            out["partial"] = f"deadline {deadline_s:.0f}s"
+            if _emit(out):
+                os._exit(0)
+            return
+
+    threading.Thread(target=watch, daemon=True).start()
 
 
 def _sync(dev):
@@ -61,8 +112,9 @@ def _sync(dev):
 
 
 def bench_env(n_envs: int, n_steps: int, repeats: int, render: bool,
-              n_unique: int, device="cuda"):
-    """Best env steps/s over `repeats` timed runs of n_steps."""
+              n_unique: int, device="cuda", profile_dir=None):
+    """Best env steps/s over `repeats` timed runs of n_steps (and one more
+    run under `profiling.trace(profile_dir)` when given)."""
     dev = resolve_device(device)
     bank = load_or_build_bank(n_unique, bake=render, device=dev)
     ids = torch.arange(n_envs, dtype=torch.int32, device=dev) % n_unique
@@ -81,6 +133,11 @@ def bench_env(n_envs: int, n_steps: int, repeats: int, render: bool,
                 chk = chk + res.obs.sum(dtype=torch.float64) * 1e-9
         return states, chk
 
+    mode = "env_render" if render else "env_only"
+    _register_partial(lambda times: {
+        "metric": f"{mode}_steps_per_sec_per_chip",
+        "value": round(n_envs * n_steps / min(times), 1),
+        "unit": f"env steps/s at {n_envs} envs"})
     times = []
     for i in range(repeats + 1):          # the first run warms up
         _sync(dev)
@@ -90,15 +147,41 @@ def bench_env(n_envs: int, n_steps: int, repeats: int, render: bool,
         chk = float(chk)
         dt = time.perf_counter() - t0
         _log(f"[bench] run {i}: {dt:.3f} s, checksum {chk:.6f}")
+        _PARTIAL["times"].append(dt)
         if i:
             times.append(dt)
+    if profile_dir:
+        from .utils import profiling
+
+        with profiling.trace(profile_dir) as prof:
+            states, chk = run(states)
+            float(chk)
+        _log(f"[bench] profiler trace written to {prof.trace_path}")
     return n_envs * n_steps / min(times), times
 
 
-def load_policy(run_dir: str, ema: bool, gaussian_init: bool, dev):
+def load_policy(run_dir, ema: bool, gaussian_init: bool, dev,
+                epoch=None):
+    """(policy, params, stats): a trained run's (its newest checkpoint, or
+    `epoch`'s), or with run_dir None the JAX bench's random-init policy
+    (UNet_Film, obs 10 / pred 30, the conv-AE encoder, step 5; params from
+    a generator seeded 0; stats None)."""
+    from .diffusion import PolicyConfig
     from .train import load_run
 
-    policy, params, stats = load_run(run_dir, dev, ema=ema)
+    if run_dir is None:
+        policy = DiffusionPolicy(PolicyConfig(
+            noise_steps=1000, obs_horizon=10, pred_horizon=30,
+            inpaint_horizon=1, model="UNet_Film",
+            vision_encoder="autoencoder", step_size=5), dev)
+        params = policy.init_params(torch.Generator().manual_seed(0))
+        stats = None
+        _log("[bench] random-init policy (generator seeded 0)")
+    else:
+        policy, params, stats = load_run(run_dir, dev, ema=ema, epoch=epoch)
+        _log(f"[bench] loaded {run_dir}"
+             + ("" if epoch is None else f" epoch {epoch}")
+             + (" (EMA weights)" if ema else ""))
     if gaussian_init:
         policy = DiffusionPolicy(
             dataclasses.replace(policy.config, uniform_init=False), dev)
@@ -106,15 +189,17 @@ def load_policy(run_dir: str, ema: bool, gaussian_init: bool, dev):
 
 
 def bench_policy(n_envs: int, repeats: int, amp: bool = True,
-                 run_dir: str = DEFAULT_RUN, metrics_frames: int = 0,
+                 run_dir=None, metrics_frames: int = 0,
                  ddim_spacing: str = "leading", gaussian_init: bool = False,
                  denoise_microbatches: int = 1, num_inference_steps: int = 10,
                  sampler: str = "ddim", ema: bool = False,
                  metrics_repeats: int = 1, n_unique: int = 4,
-                 metrics_only: bool = False, device="cuda"):
+                 metrics_only: bool = False, device="cuda", epoch=None,
+                 interp_actions: bool = False, profile_dir=None):
     """(frames/s or nan, driving dict or None)."""
     dev = resolve_device(device)
-    policy, params, stats = load_policy(run_dir, ema, gaussian_init, dev)
+    policy, params, stats = load_policy(run_dir, ema, gaussian_init, dev,
+                                        epoch)
     cfg = policy.config
     n_unique = min(n_unique, n_envs)
     bank = load_or_build_bank(n_unique, bake=True, device=dev)
@@ -125,7 +210,8 @@ def bench_policy(n_envs: int, repeats: int, amp: bool = True,
             policy, stats, sampler=sampler,
             num_inference_steps=num_inference_steps,
             ddim_spacing=ddim_spacing, amp=amp, seed=seed, warmup=warmup,
-            denoise_microbatches=denoise_microbatches)
+            denoise_microbatches=denoise_microbatches,
+            interp_actions=interp_actions)
         states, _, out = vector.rollout_policy(
             bank, env_policy(fn, params), init_ring_carry(policy, n_envs),
             n_frames, auto_reset=False, track_ids=ids, device=dev)
@@ -135,6 +221,10 @@ def bench_policy(n_envs: int, repeats: int, amp: bool = True,
     if not metrics_only:
         n_frames = cfg.step_size * 10
         ids = torch.arange(n_envs, dtype=torch.int32, device=dev) % n_unique
+        _register_partial(lambda times: {
+            "metric": "closed_loop_policy_frames_per_sec",
+            "value": round(n_envs * n_frames / min(times), 1),
+            "unit": f"env frames/s at {n_envs} envs"})
         times = []
         for i in range(repeats + 1):      # the first run warms up
             _sync(dev)
@@ -143,9 +233,17 @@ def bench_policy(n_envs: int, repeats: int, amp: bool = True,
             chk = float(out.reward_alive.sum() + out.actions.sum())
             dt = time.perf_counter() - t0
             _log(f"[bench] policy run {i}: {dt:.3f} s, checksum {chk:.4f}")
+            _PARTIAL["times"].append(dt)
             if i:
                 times.append(dt)
         fps = n_envs * n_frames / min(times)
+        if profile_dir:
+            from .utils import profiling
+
+            with profiling.trace(profile_dir) as prof:
+                _, out = drive(n_frames, ids, 0, 0)
+                float(out.actions.sum())
+            _log(f"[bench] profiler trace written to {prof.trace_path}")
 
     driving = None
     if metrics_frames > 0:
@@ -194,7 +292,8 @@ def device_name(dev) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
-def main(argv=None) -> int:
+def main(argv=None) -> dict:
+    """Run the bench and print its JSON line; returns the line's dict."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", default="env_render",
                     choices=["env_render", "env_only", "policy"])
@@ -205,7 +304,12 @@ def main(argv=None) -> int:
     ap.add_argument("--unique-tracks", type=int, default=None,
                     help="track-bank size (default: 16 env modes, 4 policy)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--run_dir", default=DEFAULT_RUN)
+    ap.add_argument("--run_dir", default=None,
+                    help="policy mode: a trained run dir (default: "
+                         "random-init weights, the same FLOPs)")
+    ap.add_argument("--epoch", type=int, default=None,
+                    help="policy mode: this epoch's checkpoint of --run_dir "
+                         "instead of the newest")
     ap.add_argument("--ema", action="store_true")
     ap.add_argument("--ddim_spacing", default="leading",
                     choices=["leading", "trailing"])
@@ -217,14 +321,34 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-frames", type=int, default=0)
     ap.add_argument("--metrics-repeats", type=int, default=1)
     ap.add_argument("--metrics-only", action="store_true")
+    ap.add_argument("--interp-actions", action="store_true",
+                    help="policy mode: interpolate linearly between queue "
+                         "rows 0 and 1 over the step_size frames between "
+                         "denoises instead of holding row 0")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of one more measured "
+                         "run into this directory (any mode)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny shapes for smoke testing")
     args = ap.parse_args(argv)
+    t_start = time.monotonic()
     if args.envs is None:
         args.envs = 256 if args.mode == "policy" else 1024
     if args.unique_tracks is None:
         args.unique_tracks = 4 if args.mode == "policy" else 16
+    _PARTIAL.update(times=[], fmt=None, done=False, printed=False)
+    default_deadline = "95" if args.mode == "env_render" else "0"
+    deadline = float(os.environ.get("SPDM_BENCH_DEADLINE", default_deadline))
+    if deadline > 0:
+        _start_watchdog(deadline, t_start)
+    if args.smoke:
+        args.envs, args.steps, args.repeats = 8, 20, 1
+        args.unique_tracks = 2
     dev = resolve_device(args.device)
 
     if args.mode == "policy":
+        if args.smoke:
+            args.envs = max(args.envs // 16, 1)
         fps, driving = bench_policy(
             args.envs, args.repeats, amp=not args.no_amp,
             run_dir=args.run_dir, metrics_frames=args.metrics_frames,
@@ -234,7 +358,9 @@ def main(argv=None) -> int:
             sampler=args.sampler, ema=args.ema,
             metrics_repeats=args.metrics_repeats,
             n_unique=args.unique_tracks,
-            metrics_only=args.metrics_only, device=dev)
+            metrics_only=args.metrics_only, device=dev, epoch=args.epoch,
+            interp_actions=args.interp_actions,
+            profile_dir=args.profile_dir)
         out = {
             "metric": "closed_loop_policy_frames_per_sec",
             "value": None if np.isnan(fps) else round(fps, 1),
@@ -249,7 +375,8 @@ def main(argv=None) -> int:
     else:
         render = args.mode == "env_render"
         value, times = bench_env(args.envs, args.steps, args.repeats, render,
-                                 args.unique_tracks, device=dev)
+                                 args.unique_tracks, device=dev,
+                                 profile_dir=args.profile_dir)
         out = {
             "metric": f"{args.mode}_steps_per_sec_per_chip",
             "value": round(value, 1),
@@ -258,9 +385,10 @@ def main(argv=None) -> int:
             "seconds": [round(t, 4) for t in times],
         }
     out["device"] = device_name(dev)
-    print(json.dumps(out), flush=True)
-    return 0
+    _emit(out)
+    _PARTIAL["done"] = True
+    return out
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    main()

@@ -5,14 +5,18 @@
 
 Counterpart of the JAX package's `cli/train_policy.py`, with its flags and
 defaults, plus `--device` (default cuda; cpu runs the plain PyTorch path).
-The dataset is a zarr store of the port's reader (uncompressed or zlib; a
-blosc store raises). `--encoder_ckpt` takes an autoencoder run directory
-or one of its `checkpoints/epoch=K` directories and reads the encoder from
-its params.npz. The validation sample figures (`train/sample_viz.py`) are
-on unless `--no_sample_viz`; they need matplotlib, and where it is missing
-(the GPU machine) the CLI raises and names the flag. Flags whose modules
-are not ported raise NotImplementedError and name their ROADMAP.md item:
---tensorboard and --profile_dir.
+The dataset is a zarr store of the port's reader (uncompressed, zlib or
+blosc; blosc-zstd needs the zstandard package). `--encoder_ckpt` takes an
+autoencoder run directory or one of its `checkpoints/epoch=K` directories
+and reads the encoder from its params.npz. The validation sample figures
+(`train/sample_viz.py`) are on unless `--no_sample_viz`; they need
+matplotlib, and where it is missing (the GPU machine) the CLI raises and
+names the flag. `--tensorboard` mirrors the scalars (and the sample
+figures) into TensorBoard event files in the run directory where the
+tensorboard package imports, and says so once where it does not
+(metrics.jsonl holds every scalar either way). `--profile_dir DIR` runs
+`fit` under `utils.profiling.trace(DIR)`, which writes a Chrome trace of
+the host and the card there.
 """
 
 from __future__ import annotations
@@ -70,13 +74,16 @@ def parse_arguments(argv=None):
                    help="write an fp16 best-val params snapshot (+ "
                         "hparams/STATS) into this dir whenever val improves")
     p.add_argument("--tensorboard", action="store_true",
-                   help="not ported")
+                   help="mirror scalars to TensorBoard event files in the "
+                        "run dir (needs the tensorboard package)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--version", default=None)
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint in the run dir "
                         "(requires --version of an existing run)")
-    p.add_argument("--profile_dir", default=None, help="not ported")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace of the whole "
+                        "fit into this directory")
     p.add_argument("--no_sample_viz", action="store_true",
                    help="skip the validation-time sample figures "
                         "(needed where matplotlib is missing)")
@@ -86,15 +93,7 @@ def parse_arguments(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.tensorboard:
-        raise NotImplementedError(
-            "--tensorboard: TensorBoard logging is not ported (ROADMAP.md "
-            "Queue 1, the training slice's deferred modules)")
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir: use tools/profile_torch_policy.py --what "
-            "train_step (ROADMAP.md Queue 1)")
+def _check_sample_viz(args) -> None:
     if not args.no_sample_viz and importlib.util.find_spec(
             "matplotlib") is None:
         raise RuntimeError(
@@ -119,7 +118,7 @@ def load_encoder_tree(ckpt: str) -> dict:
 
 def main(argv=None):
     args = parse_arguments(argv)
-    _refuse_unported(args)
+    _check_sample_viz(args)
     import torch
 
     from .. import diffusion, resolve_device, train
@@ -174,9 +173,18 @@ def main(argv=None):
         # diffusion on a fixed validation window, position and action
         # overlay figures (diffusion_ddpm.py:100-113,351-422)
         sample_hook = train.make_sample_hook(
-            policy, dm, out_dir, num_inference_steps=args.sample_viz_steps)
-    result = trainer.fit(dm, params=params, resume=args.resume,
-                         sample_hook=sample_hook)
+            policy, dm, out_dir, tb_writer=trainer._tb,
+            num_inference_steps=args.sample_viz_steps)
+    if args.profile_dir:
+        from ..utils import profiling
+
+        with profiling.trace(args.profile_dir) as prof:
+            result = trainer.fit(dm, params=params, resume=args.resume,
+                                 sample_hook=sample_hook)
+        print(f"profile trace written to {prof.trace_path}")
+    else:
+        result = trainer.fit(dm, params=params, resume=args.resume,
+                             sample_hook=sample_hook)
     print(f"done; final lr {result['lr']}, artifacts in {out_dir}")
     return result
 

@@ -6,9 +6,12 @@ zarr episodes, min-max action/velocity normalization, the per-window
 position centering, the averaged-window position stats quirk, the 80/20
 seeded split and the `STATS.pkl` sidecar. Images stay NHWC.
 
-Host batches are assembled with numpy, as the JAX package's window gather
-does where its C++ sampler is not built (`data/native.py`'s fallback). The
-device twin, `DeviceWindowDataset`, keeps the dataset on the card and
+Host batches are assembled by the port's host library (`data/native.py`:
+a multithreaded C++ window gather and position normalization, built with
+g++ at the first batch), as the JAX package's `WindowDataset.batch` does
+where its C++ sampler is built. `gather_windows` and `normalize_positions`
+below are the numpy plain versions, which the library equals bit for bit.
+The device twin, `DeviceWindowDataset`, keeps the dataset on the card and
 gathers windows with torch ops.
 """
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from . import native
 from . import normalize as N
 from .replay_buffer import ReplayBuffer, load_zarr
 
@@ -138,15 +142,16 @@ class WindowDataset:
         starts = self.indices[idxs, 0]
         seq, step = self.sequence_len, self.step_size
         out = {
-            "image": gather_windows(self.train_data["image"], starts,
-                                    image_frames or seq, step),
-            "velocity": gather_windows(self.train_data["velocity"], starts,
-                                       seq, step),
-            "action": gather_windows(self.train_data["action"], starts, seq,
-                                     step),
+            "image": native.gather_windows(self.train_data["image"], starts,
+                                           image_frames or seq, step),
+            "velocity": native.gather_windows(self.train_data["velocity"],
+                                              starts, seq, step),
+            "action": native.gather_windows(self.train_data["action"],
+                                            starts, seq, step),
         }
-        pos = gather_windows(self.train_data["position"], starts, seq, step)
-        pos, translations = normalize_positions(
+        pos = native.gather_windows(self.train_data["position"], starts, seq,
+                                    step)
+        pos, translations = native.normalize_positions(
             pos, float(self.stats["position"]["min"]),
             float(self.stats["position"]["max"]))
         out["position"] = pos

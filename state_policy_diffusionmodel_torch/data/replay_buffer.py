@@ -8,11 +8,15 @@ same zarr v2 group, `data/<key>`, `meta/episode_ends`, `meta/<key>` and a
 `.zgroup` at each level, so either package reads what the other writes;
 a `.zip` of such a directory is read through `zipfile`.
 
-The JAX package writes through tensorstore with blosc by default. This
-module has no blosc codec (and the GPU machine has no tensorstore, zarr or
-numcodecs): it reads and writes arrays without a compressor or with
-`zlib`, and a blosc store raises and names its codec. It writes `zlib`
-(level 1) by default, which the JAX package's tensorstore also reads.
+The JAX package writes through tensorstore with blosc by default: zstd-5
+with bitshuffle (its `disk` preset) or lz4 (`default`). This module reads
+blosc chunks itself (`_blosc_decode`): the chunk header and block offsets,
+memcpyed chunks, split streams, zlib through `zlib`, zstd through the
+`zstandard` package where it imports, lz4 and lz4hc through the port's host
+library (`data/native.py`, a hand-written LZ4 block decoder), and byte
+shuffle and bitshuffle undone in numpy, one chunk at a time. It also reads
+arrays without a compressor or with `zlib`. It writes `zlib` (level 1) by
+default, or uncompressed, both of which the JAX package's tensorstore reads.
 
 `ZarrReplayBuffer` is the live on-disk store (the JAX package's, there
 through tensorstore's resizable zarr driver): episodes append straight to
@@ -34,6 +38,8 @@ import zlib
 from typing import Dict, Optional
 
 import numpy as np
+
+from . import native
 
 DEFAULT_COMPRESSOR = {"id": "zlib", "level": 1}
 
@@ -152,25 +158,155 @@ def _encode(raw: bytes, compressor: Optional[dict]) -> bytes:
                      "package writes uncompressed and zlib arrays only")
 
 
-_READABLE = (None, "zlib")
+# blosc1's compressor format codes (the header's flags >> 5)
+_BLOSC_CODECS = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib", 4: "zstd"}
+_BLOSC_READ = {"lz4", "lz4hc", "zlib", "zstd"}
+
+
+def _zstd_module():
+    """The `zstandard` package, or a ValueError naming it."""
+    try:
+        import zstandard
+    except ModuleNotFoundError as e:
+        raise ValueError(
+            "blosc-zstd chunks need the `zstandard` package, which is not "
+            "installed here: rewrite the store with zlib (the JAX "
+            "package's save_zarr with compressors={key: {'id': 'zlib', "
+            "'level': 1}}) or with blosc lz4, or collect the data on this "
+            "machine") from e
+    return zstandard
 
 
 def _check_codec(compressor: Optional[dict], where: str) -> None:
+    """Raise, naming what is missing, unless this machine reads the codec."""
     cid = None if compressor is None else compressor.get("id")
-    if cid in _READABLE:
+    if cid in (None, "zlib"):
         return
-    detail = (f", cname {compressor.get('cname')}" if cid == "blosc"
-              else "")
-    raise ValueError(
-        f"{where} is compressed with {cid}{detail}: this package reads "
-        "uncompressed and zlib zarr stores only, and the GPU machine has no "
-        "blosc reader (no numcodecs, zarr or tensorstore). Rewrite the store "
-        "with zlib (the JAX package's save_zarr with compressors="
-        "{key: {'id': 'zlib', 'level': 1}}), or collect the data on the card")
+    if cid == "blosc":
+        cname = compressor.get("cname")
+        if cname not in _BLOSC_READ:
+            raise ValueError(f"{where} is compressed with blosc {cname}: "
+                             f"this package reads blosc "
+                             f"{sorted(_BLOSC_READ)} only")
+        if cname == "zstd":
+            _zstd_module()
+        return
+    raise ValueError(f"{where} is compressed with {cid}: this package reads "
+                     "uncompressed, zlib and blosc zarr arrays only")
+
+
+def _blosc_stream(data: bytes, codec: str, size: int) -> bytes:
+    """One compressed blosc stream decoded to its `size` bytes."""
+    if codec == "lz4":
+        return native.lz4_decompress(data, size)
+    if codec == "zlib":
+        out = zlib.decompress(data)
+    elif codec == "zstd":
+        out = _zstd_module().ZstdDecompressor().decompress(
+            data, max_output_size=size)
+    else:
+        raise ValueError(f"blosc stream compressed with {codec}: not read")
+    if len(out) != size:
+        raise ValueError(f"a blosc {codec} stream decoded to {len(out)} "
+                         f"bytes, expected {size}")
+    return out
+
+
+def _unshuffle(block: np.ndarray, typesize: int) -> np.ndarray:
+    """Undo blosc's byte shuffle of one block: the first (n // typesize) *
+    typesize bytes were stored byte plane by byte plane; the rest as is."""
+    n = block.size // typesize * typesize
+    out = block.copy()
+    out[:n] = block[:n].reshape(typesize, -1).T.reshape(-1)
+    return out
+
+
+def _bitunshuffle(block: np.ndarray, typesize: int) -> np.ndarray:
+    """Undo blosc's bitshuffle of one block. A block of a multiple of 8
+    whole elements was stored bit plane by bit plane (plane b * 8 + i holds
+    bit i of byte b of every element, least significant bit first), with
+    the bytes past its last whole element as they are; any other block was
+    stored as it is (c-blosc's `bitshuffle` copies it)."""
+    elems = block.size // typesize
+    if elems % 8:
+        return block
+    n = elems * typesize
+    out = block.copy()
+    if elems:
+        planes = np.unpackbits(block[:n].reshape(typesize * 8, elems // 8),
+                               axis=1, bitorder="little")
+        out[:n] = np.packbits(planes.T, axis=1, bitorder="little").reshape(-1)
+    return out
+
+
+def _blosc_decode(blob: bytes) -> bytes:
+    """A blosc1 chunk decoded: the 16-byte header (version, versionlz,
+    flags, typesize, nbytes, blocksize, cbytes), then either the raw bytes
+    (memcpyed) or one int32 offset a block and the blocks, each of one
+    stream or of `typesize` split streams (an int32 size, then the bytes;
+    a stream of exactly its decoded size is stored raw)."""
+    head = np.frombuffer(blob, np.uint8, 4)
+    flags, typesize = int(head[2]), int(head[3])
+    nbytes, blocksize, cbytes = (int(v) for v in
+                                 np.frombuffer(blob, "<u4", 3, 4))
+    if cbytes != len(blob):
+        raise ValueError(f"a blosc chunk of {len(blob)} bytes says "
+                         f"{cbytes}")
+    if flags & 0x2:                                    # memcpyed
+        return blob[16:16 + nbytes]
+    codec = _BLOSC_CODECS.get(flags >> 5, f"code {flags >> 5}")
+    nblocks = -(-nbytes // blocksize)
+    starts = [int(v) for v in np.frombuffer(blob, "<i4", nblocks, 16)]
+    ends = starts[1:] + [cbytes]
+    out = np.empty(nbytes, np.uint8)
+    for i, (lo, hi) in enumerate(zip(starts, ends)):
+        bsize = min(blocksize, nbytes - i * blocksize)
+        leftover = bsize < blocksize
+        # blosc splits a block into typesize streams unless the header says
+        # it did not (0x10); a leftover block is never split
+        split = (not flags & 0x10 and not leftover and typesize <= 16
+                 and bsize // typesize >= 128)
+        streams = _blosc_streams(blob, lo, hi, typesize if split else 1,
+                                 bsize)
+        if streams is None:
+            raise ValueError(f"blosc block {i}: its streams do not fill "
+                             f"bytes {lo}..{hi}")
+        size = bsize // len(streams)
+        block = np.frombuffer(b"".join(
+            data if len(data) == size else _blosc_stream(data, codec, size)
+            for data in streams), np.uint8)
+        if flags & 0x1 and typesize > 1:
+            block = _unshuffle(block, typesize)
+        elif flags & 0x4 and bsize >= typesize:
+            block = _bitunshuffle(block, typesize)
+        out[i * blocksize:i * blocksize + bsize] = block
+    return out.tobytes()
+
+
+def _blosc_streams(blob: bytes, lo: int, hi: int, n: int, bsize: int):
+    """The block at blob[lo:hi] as its n still compressed streams, or None
+    where n streams of at most bsize // n bytes do not fill it exactly."""
+    if bsize % n:
+        return None
+    pos, parts = lo, []
+    for _ in range(n):
+        if pos + 4 > hi:
+            return None
+        c = int(np.frombuffer(blob, "<i4", 1, pos)[0])
+        pos += 4
+        if c <= 0 or c > bsize // n or pos + c > hi:
+            return None
+        parts.append(blob[pos:pos + c])
+        pos += c
+    return parts if pos == hi else None
 
 
 def _decode(blob: bytes, compressor: Optional[dict]) -> bytes:
-    return blob if compressor is None else zlib.decompress(blob)
+    if compressor is None:
+        return blob
+    if compressor.get("id") == "blosc":
+        return _blosc_decode(blob)
+    return zlib.decompress(blob)
 
 
 def _write_group_meta(path: str) -> None:

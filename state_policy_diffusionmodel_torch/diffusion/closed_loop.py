@@ -104,7 +104,8 @@ def make_ring_policy(policy: DiffusionPolicy, stats=None,
                      ddim_spacing: str = "leading", amp: bool = False,
                      init_noise_fn: Optional[Callable] = None,
                      seed: int = 0, warmup: int = 0,
-                     denoise_microbatches: int = 1) -> Callable:
+                     denoise_microbatches: int = 1,
+                     interp_actions: bool = False) -> Callable:
     """policy_fn(params, carry, obs, car_position, car_velocity)
     -> ((B, 3) actions, carry).
 
@@ -117,7 +118,12 @@ def make_ring_policy(policy: DiffusionPolicy, stats=None,
     no denoise, while the rings fill with real observations (the driving
     metrics of the JAX bench.py use warmup = obs_horizon * step_size).
     denoise_microbatches = M splits each denoise into M sampler calls over
-    slices of the batch, with the slices of one x_T draw."""
+    slices of the batch, with the slices of one x_T draw.
+
+    interp_actions: between two denoises, frame j after the denoise takes
+    the queue's rows 0 and 1 interpolated linearly at j / step_size
+    (`eval.rollout.interpolate_actions`, the JAX bench's --interp-actions)
+    in place of row 0 held for step_size frames."""
     cfg = policy.config
     dev = policy.device
     L = cfg.obs_horizon * cfg.step_size
@@ -175,6 +181,11 @@ def make_ring_policy(policy: DiffusionPolicy, stats=None,
 
         if k0 < warmup:
             actions = warm_action.expand(queue.shape[0], 3)
+        elif interp_actions:
+            from ..eval.rollout import interpolate_actions
+
+            j = (k0 - warmup) % cfg.step_size
+            actions = interpolate_actions(queue[:, :2], cfg.step_size)[:, j]
         else:
             actions = queue[:, 0]
         hist["action"] = roll(hist["action"], actions)

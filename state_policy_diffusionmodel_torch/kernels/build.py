@@ -1,13 +1,18 @@
-"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+"""Build the port's CUDA kernels with nvcc, and its host library with g++,
+and load them through ctypes.
 
 Each source under `state_policy_diffusionmodel_torch/csrc/` has a plain C
-interface (no PyTorch headers), so one `nvcc` call turns it into a shared
-library in seconds. Libraries go to `build/` at the repository root, named
-by a hash of the source, every shared header (`csrc/*.cuh`) and the flags,
-so an edited source or header builds anew and an unchanged one is loaded as
-it is; nvcc's log is kept beside each library (`.log`) and read back with
-it. Nothing is built when this module is imported: the first call that
-needs a kernel builds it.
+interface (no PyTorch headers), so one compiler call turns it into a shared
+library in seconds: `nvcc` for the kernels (`SOURCES`), the host C++
+compiler for the host library (`HOST_SOURCES`: the window gather and the
+LZ4 decoder). Libraries go to `build/` at the repository root, named by a
+hash of the source, of every shared header (`csrc/*.cuh`, for the kernels)
+and of the flags, so an edited source or header builds anew and an
+unchanged one is loaded as it is; the compiler's log is kept beside each
+library (`.log`) and read back with it. A library is written under a name
+of its own process and renamed into place, so processes that build the
+same library at once each load a whole one. Nothing is built when this
+module is imported: the first call that needs a library builds it.
 """
 
 from __future__ import annotations
@@ -35,14 +40,21 @@ SOURCES = {"attention_core": "attention_core.cu",
            "gn_act": "gn_act.cu",
            "conv_dw": "conv_dw.cu"}
 
+# host C++ (no CUDA), by library name. No -march=native: the library must
+# give the numpy versions' float32 results, which FMA contraction would
+# change, and build/ may be shared by hosts of different CPUs
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
+HOST_SOURCES = {"window_sampler": "window_sampler.cpp"}
+
 
 @dataclass
 class Built:
     name: str
     path: Path
-    seconds: float      # nvcc wall time; 0.0 when the library was cached
-    log: str            # nvcc's output (ptxas register and spill report),
-                        # also when the library was cached
+    seconds: float      # the compiler's wall time; 0.0 when the library
+                        # was cached
+    log: str            # the compiler's output (nvcc's ptxas register and
+                        # spill report), also when the library was cached
 
 
 _built: dict[str, Built] = {}
@@ -58,20 +70,44 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def cxx() -> str:
+    """The host C++ compiler: $CXX, else g++ or c++ on the PATH."""
+    for cand in (os.environ.get("CXX"), shutil.which("g++"),
+                 shutil.which("c++")):
+        if cand:
+            return cand
+    raise RuntimeError("no host C++ compiler found: set CXX (g++ works)")
+
+
+def _source(name: str) -> Path:
+    return CSRC_DIR / (SOURCES[name] if name in SOURCES
+                       else HOST_SOURCES[name])
+
+
 def _target(name: str) -> Path:
     """The library's path in build/: its name and a hash of its source, of
-    every header a source may include, and of the flags."""
-    h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    every header a kernel source may include, and of the flags."""
+    h = hashlib.sha256(_source(name).read_bytes())
+    if name in SOURCES:
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+    else:
+        h.update(" ".join(HOST_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _command(name: str, out: Path) -> list:
+    if name in SOURCES:
+        return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(_source(name))]
+    return [cxx(), *HOST_FLAGS, "-o", str(out), str(_source(name))]
+
+
 def build_all(names=None) -> dict[str, Built]:
-    """Build the named libraries (all by default), one nvcc per source, all
-    started together. Returns what was built or found, by name."""
-    names = list(SOURCES if names is None else names)
+    """Build the named libraries (every kernel and the host library by
+    default), one compiler per source, all started together. Returns what
+    was built or found, by name."""
+    names = list([*SOURCES, *HOST_SOURCES] if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -84,8 +120,7 @@ def build_all(names=None) -> dict[str, Built]:
                                  log.read_text() if log.exists() else "")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / SOURCES[name])]
+        cmd = _command(name, tmp)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        time.perf_counter(), tmp, out)
@@ -94,7 +129,8 @@ def build_all(names=None) -> dict[str, Built]:
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{name} ({os.path.basename(proc.args[0])} exit "
+                          f"{proc.returncode}):\n{log}")
             continue
         log_tmp = tmp.with_suffix(".log")
         log_tmp.write_text(log)
@@ -102,12 +138,18 @@ def build_all(names=None) -> dict[str, Built]:
         os.replace(tmp, out)
         _built[name] = Built(name, out, seconds, log)
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise RuntimeError("build failed: " + "\n".join(failed))
     return {n: _built[n] for n in names}
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, built first if it is not in build/."""
+    """The loaded library `name`, built first if it is not in build/; a
+    library that does not load raises with its build log."""
     if name not in _libs:
-        _libs[name] = ctypes.CDLL(str(build_all([name])[name].path))
+        built = build_all([name])[name]
+        try:
+            _libs[name] = ctypes.CDLL(str(built.path))
+        except OSError as e:
+            raise RuntimeError(f"{built.path} does not load ({e}); its build "
+                               f"log:\n{built.log}") from e
     return _libs[name]

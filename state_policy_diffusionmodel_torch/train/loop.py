@@ -67,7 +67,8 @@ class TrainConfig:
                                 # when set: an fp16 npz snapshot of the (EMA
                                 # if enabled) params + hparams/STATS here
                                 # whenever the epoch's val loss improves
-    tensorboard: bool = False   # not ported (ROADMAP.md Queue 1)
+    tensorboard: bool = False   # mirror scalars to TensorBoard event files
+                                # (where the tensorboard package imports)
 
 
 def _cosine_lr(cfg: TrainConfig, epochs_done: int) -> float:
@@ -314,21 +315,34 @@ class Trainer:
     out_dir: str
 
     def __post_init__(self):
-        if self.config.tensorboard:
-            raise NotImplementedError(
-                "TensorBoard logging is not ported (ROADMAP.md Queue 1); "
-                "metrics.jsonl holds every scalar")
         self.device = self.policy.device
         self.eval_step = make_eval_step(self.policy)
         self._saver = _AsyncSaver()
         self._dev_ds = None
         os.makedirs(self.out_dir, exist_ok=True)
         self.metrics_path = os.path.join(self.out_dir, "metrics.jsonl")
+        self._tb = None
+        if self.config.tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                print("--tensorboard: the tensorboard package is not "
+                      "installed here; scalars go to metrics.jsonl only")
+            else:
+                self._tb = SummaryWriter(self.out_dir, flush_secs=1)
 
     def _log(self, record: Dict[str, Any]):
         record["time"] = time.time()
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
+        if self._tb is not None:
+            # the JAX trainer's tags, at the record's step (or epoch)
+            step = int(record.get("step", record.get("epoch", 0) or 0))
+            for key, tag in (("loss", "train_loss"), ("val_loss", "val_loss"),
+                             ("lr", "lr"), ("train_loss", "epoch_train_loss"),
+                             ("steps_per_sec", "steps_per_sec")):
+                if key in record:
+                    self._tb.add_scalar(tag, float(record[key]), step)
 
     def _device_ds(self, dm: DataModule) -> DeviceWindowDataset:
         """The device twin, built per DataModule (a second fit() with
@@ -525,6 +539,8 @@ class Trainer:
                            len(epoch_losses) * cfg.batch_size / max(dt, 1e-9)})
 
         self._saver.wait()
+        if self._tb is not None:
+            self._tb.flush()
         return {"params": params, "ema": ema, "optimizer": optimizer,
                 "history": history, "lr": lr, "step": step_idx}
 

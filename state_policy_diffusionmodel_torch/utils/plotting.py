@@ -1,17 +1,22 @@
-"""Plot utilities (host side): the validation-sample and eval figures.
+"""Plot and animation utilities (host side).
 
-Counterpart of the parts of `state_policy_diffusionmodel_tpu/utils/
-plotting.py` that the port's training hook and eval suite call: the
-prediction-overlay and action-comparison figures, figure-to-image export
-and the autoencoder CLI's reconstruction grid. matplotlib (and the Pillow
-it depends on) is imported only when a figure is made, since the GPU
-machine has neither. The denoising animations wait for the CLIs that use
-them.
+Counterpart of `state_policy_diffusionmodel_tpu/utils/plotting.py`: the
+prediction-overlay and action-comparison figures, figure-to-image export,
+the autoencoder CLI's reconstruction grid, the denoising animations
+(`plt_toVideo` of the reference) and frame export to a video: an .mp4
+through ffmpeg where it is on the PATH, else a .gif through Pillow.
+matplotlib and Pillow are imported only when a figure or a file is made,
+since the GPU machine has neither (nor ffmpeg).
 """
 
 from __future__ import annotations
 
 import io
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Sequence
 
 import numpy as np
 
@@ -43,6 +48,32 @@ def save_png(arr: np.ndarray, path: str) -> None:
     from PIL import Image
 
     Image.fromarray(arr).save(path)
+
+
+def save_animation(frames: Sequence[np.ndarray], path: str,
+                   fps: int = 10) -> str:
+    """Write uint8 RGB frames to `path` as an .mp4 through ffmpeg, or as a
+    .gif through Pillow (an .mp4 path becomes .gif where ffmpeg is not on
+    the PATH). Returns the path written."""
+    from PIL import Image
+
+    if path.endswith(".mp4") and shutil.which("ffmpeg") is None:
+        path = path[:-4] + ".gif"
+    if path.endswith(".gif"):
+        imgs = [Image.fromarray(np.asarray(f)) for f in frames]
+        imgs[0].save(path, save_all=True, append_images=imgs[1:],
+                     duration=int(1000 / fps), loop=0)
+        return path
+    with tempfile.TemporaryDirectory() as td:
+        for i, f in enumerate(frames):
+            Image.fromarray(np.asarray(f)).save(
+                os.path.join(td, f"f{i:05d}.png"))
+        subprocess.run(
+            ["ffmpeg", "-y", "-loglevel", "error", "-framerate", str(fps),
+             "-i", os.path.join(td, "f%05d.png"), "-pix_fmt", "yuv420p",
+             "-vf", "pad=ceil(iw/2)*2:ceil(ih/2)*2", path],
+            check=True)
+    return path
 
 
 def plot_prediction_overlay(positions_gt, positions_obs, positions_pred,
@@ -85,6 +116,42 @@ def plot_action_comparison(actions_pred, actions_gt, inpaint_horizon: int,
     axes[0].legend()
     fig.suptitle(title)
     return fig
+
+
+def denoising_frames(history: np.ndarray, every: int = 10,
+                     kind: str = "positions") -> list:
+    """The frames of `denoising_animation`: sample 0 of the denoising
+    history (T_steps+1, B, horizon, 5) every `every` steps, its positions
+    as a scatter in fixed limits or its three action channels, each figure
+    as (H, W, 3) uint8."""
+    plt = _plt()
+    hist = history[::every, 0]
+    frames = []
+    lim_pos = np.abs(history[..., :2]).max() * 1.1 + 1e-3
+    for step, x in enumerate(hist):
+        if kind == "positions":
+            fig = plt.figure()
+            plt.scatter(x[:, 0], x[:, 1], c=np.arange(len(x)), cmap="viridis")
+            plt.xlim(-lim_pos, lim_pos)
+            plt.ylim(-lim_pos, lim_pos)
+            plt.title(f"denoising step {step * every}")
+        else:
+            fig, axes = plt.subplots(1, 3, figsize=(10, 3))
+            for i, ax in enumerate(axes):
+                ax.plot(x[:, 2 + i], "r.-")
+                ax.set_ylim(-1.5, 1.5)
+            fig.suptitle(f"denoising step {step * every}")
+        frames.append(fig_to_array(fig))
+        plt.close(fig)
+    return frames
+
+
+def denoising_animation(history: np.ndarray, out_path: str, fps: int = 10,
+                        every: int = 10, kind: str = "positions") -> str:
+    """plt_toVideo: animate the denoising history (T_steps+1, B, horizon,
+    5) of sample 0 into a video; returns the path written."""
+    return save_animation(denoising_frames(history, every, kind), out_path,
+                          fps)
 
 
 def image_grid(images: np.ndarray, path: str, ncols: int = 8) -> str:

@@ -2,10 +2,11 @@
 windows, statistics, batches, the device twin, the data module's split and
 order, the zarr store in both directions and the STATS.pkl sidecar.
 
-The committed store `data/eval_shared/...zarr` is blosc-compressed, which
-the port does not read (nor can the GPU machine): its first two episodes
-are read here through the JAX package's own lazy tensorstore views and
-handed as (data, episode_ends) to both packages. The whole store (1.3 GB of
+The committed store `data/eval_shared/...zarr` is blosc-zstd compressed,
+which the port reads only where the zstandard package imports (not on the
+GPU machine; tests/test_torch_blosc.py holds its reader): its first two
+episodes are read here through the JAX package's own lazy tensorstore
+views and handed as (data, episode_ends) to both packages. The whole store (1.3 GB of
 float32 frames) is compared in one `slow` test.
 
 Tolerances: statistics, indices, splits and orders exactly equal; batch
@@ -278,8 +279,20 @@ def test_jax_zarr_with_null_and_zlib_read_by_port(tmp_path):
                                   buf.meta["track_seed"])
 
 
-def test_port_refuses_a_blosc_store():
-    with pytest.raises(ValueError, match="blosc, cname zstd"):
+def test_port_refuses_a_blosc_store(monkeypatch):
+    """Where the zstandard package does not import (the GPU machine), the
+    port refuses the blosc-zstd store and names the package."""
+    import builtins
+
+    real = builtins.__import__
+
+    def no_zstandard(name, *args, **kw):
+        if name == "zstandard":
+            raise ModuleNotFoundError("No module named 'zstandard'")
+        return real(name, *args, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_zstandard)
+    with pytest.raises(ValueError, match="blosc-zstd.*zstandard"):
         tr.load_zarr(STORE)
 
 
