@@ -1,10 +1,12 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed N] [--only k1,k2,k4]
+    python3 chip_smoke.py [--seed N] [--only k1,k2,k4,md]
 
-`--only` runs the device and build phases and then the named kernel phases
-alone (K1 with its U-Net forwards, K2 on its four cases, K4), printing
-their records, the card and the last line as below.
+`--only` runs the device and build phases and then the named phases alone
+(K1 with its U-Net forwards, K2 on its four cases, K4; md: the collection
+and the multi-device phase, which on a machine of several cards also runs
+NCCL with a rank a card), printing their records, the card and the last
+line as below.
 
 Phases, each printed with its seconds:
   1. device   the card (nvidia-smi name and power limit), torch, nvcc;
@@ -177,13 +179,39 @@ Phases, each printed with its seconds:
               steps, and bench --smoke --profile-dir in policy mode: each
               writes one Chrome trace, with K1's kernel among its device
               events;
+  multi-device  two gloo ranks on the card (spawned; the kernels already
+              built): r5blend's closed loop of 256 envs (128 a rank) on the
+              4-track bank, DDIM-10 leading, 20 frames from a reset, render
+              on, through rollout_policy_sharded with the keyed x_T: each
+              rank exactly 200 K1 and 21 K2 launches, the gathered actions
+              within ACTION_TOL of one process's run of the same 256 envs;
+              two data-parallel steps of r5blend's recipe at B=256 (128 a
+              rank) on the collected store against two one-process steps
+              from the same weights and generator (losses within rtol
+              1e-5, params within rtol 1e-3 / atol 1e-5, the attention key
+              biases within 2 * lr a step, Adam's ceiling; the tensor
+              closest to its limit named, the key biases reported apart);
+              the same two steps on a world-size-1 NCCL group against the
+              no-group steps; both again with NCCL and a rank a card where
+              there are two or more cards (else it says so); each rank's
+              frames/s and step ms with the card's name and power limit;
+  zstd        the JAX package's shared eval store (data/eval_shared, blosc
+              zstd-5 with bitshuffle, 1.33 GB decoded) read through the
+              host library's zstd decoder: the six arrays, their shapes and
+              MB/s; then cli/evaluate.py accuracy of r5blend (EMA, gaussian
+              x_T, DDIM-10 leading, 120 windows) on it: K1 and nothing
+              else, the error and windows/s beside the JAX record's
+              (results/r5/acc_r5blend_ema.json, other weights: a
+              reference, not a target);
 Then one line holds the kernels as JSON (with the policy, env, loop,
 collect, training, eval, UNetSimple, r4rn, autoencoder, native, sample,
-run_predictions, mfu and profile readings; the K1-K6 entries with
+run_predictions, mfu, profile, multi-device and zstd readings; the K1-K6
+entries with
 `launches_r4rn`, K3-K5 with `launches_unet_simple` and their UNetSimple
 sums; K1 with `launches_sample_ddpm`, `launches_run_predictions` and
 `launches_mfu`, K2 with `launches_run_predictions`, K3-K5 with
-`launches_mfu`; each kernel's sums over one forward
+`launches_mfu`, K1 and K2 with `launches_sharded_loop` (each rank's), K1
+with `launches_shared_accuracy`; each kernel's sums over one forward
 or step in fp32, and in bf16 under "bf16"), one the card's name and power
 limit, and the last line is {"ok": true, "device": {...}}. Any failed
 check exits non-zero first.
@@ -2628,12 +2656,341 @@ def profile_phase(device, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# multi-device and zstd phases
+# ---------------------------------------------------------------------------
+
+# the multi-device phase: r5blend's sharded closed loop (DDIM-10 leading,
+# render on, from a reset: 4 denoises), and r5blend's recipe for two
+# data-parallel train steps at the global batch
+MD_ENVS, MD_FRAMES, MD_STEPS, MD_LAUNCH_TIMEOUT = 256, 20, 2, 300.0
+MD_RECIPE = dict(batch_size=256, lr=4e-4, lr_schedule="cosine", min_lr=1e-6,
+                 ema_decay=0.9995, device_data=True, early_stop=False)
+# the JAX multi-device test's limits (tests/test_train.py): losses within
+# rtol 1e-5, params within rtol 1e-3 / atol 1e-5. The attention key
+# biases get no gradient in exact arithmetic: Adam moves them by up to lr
+# a step whatever the sign of their rounding-level gradients, so they are
+# held within the 2 * lr a step that the two sides can move apart (Adam's
+# ceiling, which they reach when the signs differ) and reported apart
+# from the other tensors
+MD_LOSS_RTOL, MD_PARAM_RTOL, MD_PARAM_ATOL = 1e-5, 1e-3, 1e-5
+# the shared eval store of the JAX package (blosc zstd-5 with bitshuffle)
+# and the accuracy record taken on it (other weights: a reference, not a
+# target; ROADMAP.md Queue 3 item 1)
+SHARED_DIR = os.path.join(HERE, "data", "eval_shared")
+SHARED_NAME = "shared_eval_dataset_6_episodes_3_drivers.zarr"
+SHARED_RECORD = os.path.join(HERE, "results", "r5", "acc_r5blend_ema.json")
+SHARED_ARGS = ["accuracy", "--run_dir", RUN_DIR, "--ema", "--gaussian_init",
+               "--dataset_dir", SHARED_DIR, "--dataset_name", SHARED_NAME,
+               "--max_windows", "120", "--sampler", "ddim",
+               "--num_inference_steps", "10", "--ddim_spacing", "leading",
+               "--device", "cuda"]
+
+
+def _tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def md_loop(mesh, seed):
+    """r5blend's closed loop over MD_ENVS envs on the 4-track bank, split
+    over the mesh's ranks (the whole batch on a one-process mesh): this
+    rank's K1 and K2 launches (counts to 0 just before, read just after),
+    its frames/s, and the gathered (T, B, 3) actions on the CPU."""
+    from state_policy_diffusionmodel_torch import diffusion
+    from state_policy_diffusionmodel_torch.envs import vector
+    from state_policy_diffusionmodel_torch.models import cuda_ops
+    from state_policy_diffusionmodel_torch.render import cuda_sampler
+    from state_policy_diffusionmodel_torch.track import load_or_build_bank
+    from state_policy_diffusionmodel_torch.train import load_run
+
+    _tf32_off()
+    dev = mesh.device
+    policy, params, stats = load_run(RUN_DIR, dev)
+    bank = load_or_build_bank(LOOP_TRACKS, bake=True, device=dev)
+    ids = torch.arange(MD_ENVS, device=dev) % LOOP_TRACKS
+
+    def drive(n_frames):
+        fn = diffusion.make_ring_policy(policy, stats, sampler="ddim",
+                                        num_inference_steps=10, seed=seed)
+        if mesh.group is None:
+            _, _, out = vector.rollout_policy(
+                bank, diffusion.env_policy(fn, params),
+                diffusion.init_ring_carry(policy, MD_ENVS), n_frames,
+                auto_reset=False, track_ids=ids, device=dev)
+            return out.actions
+        _, _, acts, _ = vector.rollout_policy_sharded(
+            mesh, params, bank, diffusion.env_policy_fn(fn),
+            diffusion.init_ring_carry(policy, MD_ENVS), n_frames,
+            auto_reset=False, track_ids=ids)
+        return acts
+
+    drive(5)                                                 # warm-up
+    torch.cuda.synchronize(dev)
+    cuda_ops.attention_core.launches = 0
+    cuda_sampler.sample_banked.launches = 0
+    t0 = time.perf_counter()
+    acts = drive(MD_FRAMES)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    return dict(rank=mesh.rank, world_size=mesh.world_size,
+                backend=mesh.backend, seconds=secs,
+                fps=MD_ENVS // mesh.world_size * MD_FRAMES / secs,
+                K1=cuda_ops.attention_core.launches,
+                K2=cuda_sampler.sample_banked.launches,
+                actions=acts.cpu())
+
+
+def md_steps(mesh, store, seed, out_dir):
+    """MD_STEPS data-parallel steps of r5blend's recipe from r5blend's
+    weights at the global batch MD_RECIPE["batch_size"] (this rank's rows
+    of it; t and the noise drawn at the global shape from one generator
+    seeded `seed`): the losses averaged over the ranks, the ms of each step
+    (host wall time ending in a synchronize), and every U-Net and encoder
+    tensor on the CPU."""
+    from state_policy_diffusionmodel_torch.data.dataset import DataModule
+    from state_policy_diffusionmodel_torch.parallel import mean_over_ranks
+    from state_policy_diffusionmodel_torch.train import load_run, loop
+
+    _tf32_off()
+    dev = mesh.device
+    policy, params, _ = load_run(RUN_DIR, dev)
+    cfg = loop.TrainConfig(**MD_RECIPE)
+    dm = DataModule(batch_size=cfg.batch_size, data_dir=os.path.dirname(store),
+                    T_obs=10, T_pred=30, seed=seed, step_size=5)
+    dm.setup(os.path.basename(store))
+    trainer = loop.Trainer(policy, cfg, out_dir, mesh=mesh)
+    trainer._device_ds(dm)                  # the twin, before the clock
+    ema = copy.deepcopy(params)
+    step = loop.make_train_step(policy, params,
+                                loop.make_optimizer(cfg, params),
+                                ema=ema, ema_decay=cfg.ema_decay, mesh=mesh)
+    order = np.random.default_rng(seed).permutation(dm.train_idx)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    losses, ms = [], []
+    for i in range(MD_STEPS):
+        idx = order[i * cfg.batch_size:(i + 1) * cfg.batch_size]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        batch, t, noise = trainer._batch(dm, idx, gen)
+        losses.append(step(batch, cfg.lr, t=t, noise=noise))
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(rank=mesh.rank, world_size=mesh.world_size,
+                backend=mesh.backend, ms=ms,
+                losses=mean_over_ranks(torch.stack(losses), mesh).cpu(),
+                params={f"{m}.{k}": v.detach().cpu()
+                        for m, mod in params.items()
+                        for k, v in mod.state_dict().items()})
+
+
+def md_rank(mesh, seed, store, out_dir):
+    """Both multi-device checks in one spawned rank."""
+    return dict(loop=md_loop(mesh, seed),
+                steps=md_steps(mesh, store, seed, out_dir))
+
+
+def md_compare_steps(got, want, what):
+    """`got`'s steps against `want`'s: the losses' largest relative gap,
+    the tensor that comes closest to its limit but the key biases (its
+    name and the reading, the largest |difference| over the limit), and
+    the key biases' reading against Adam's ceiling. Raises past a
+    limit."""
+    gl, wl = got["losses"].double(), want["losses"].double()
+    loss_gap = ((gl - wl).abs() / wl.abs()).max().item()
+    if not loss_gap <= MD_LOSS_RTOL:
+        raise Failed(f"{what}: losses {gl.tolist()} against {wl.tolist()}")
+    worst_key, worst, key_bias = None, 0.0, 0.0
+    for k, w in want["params"].items():
+        g = got["params"][k]
+        d = (g.double() - w.double()).abs()
+        if k.endswith("key.bias"):
+            limit = torch.full_like(d, 2 * MD_STEPS * MD_RECIPE["lr"] * 1.001)
+            key_bias = max(key_bias, (d / limit).max().item())
+        else:
+            limit = MD_PARAM_ATOL + MD_PARAM_RTOL * w.double().abs()
+            reading = (d / limit).max().item()
+            if worst_key is None or reading > worst:
+                worst_key, worst = k, reading
+        if not bool((d <= limit).all()):
+            raise Failed(f"{what}: {k} off by {d.max().item():.3e}")
+    return dict(loss_rel_gap=loss_gap, param_worst=worst_key,
+                param_gap_of_limit=worst, key_bias_of_ceiling=key_bias)
+
+
+def md_gaps_text(gaps):
+    return (f"loss gap {gaps['loss_rel_gap']:.2e} (rtol {MD_LOSS_RTOL}), "
+            f"params: {gaps['param_worst']} at "
+            f"{gaps['param_gap_of_limit']:.3f} of its limit, the key biases "
+            f"at {gaps['key_bias_of_ceiling']:.3f} of Adam's ceiling")
+
+
+def multi_device_phase(args, device, smi, work):
+    """Two gloo ranks on the one card (the sharded closed loop and two
+    data-parallel train steps of r5blend's recipe) against one process;
+    the world-size-1 NCCL step against the no-group step; NCCL across
+    the cards when there are two or more."""
+    import torch.distributed as dist
+
+    from state_policy_diffusionmodel_torch.parallel import Mesh, make_mesh
+    from state_policy_diffusionmodel_torch.parallel.launch import launch
+
+    store = os.path.join(work, "card.zarr")
+    out = {"card": smi}
+    # the keyed x_T of one denoise at MD_ENVS envs: drawn on the host and
+    # copied to the card (host wall time, ending in a synchronize)
+    from state_policy_diffusionmodel_torch.diffusion import keyed_init_noise
+
+    draw_ms = []
+    for k0 in range(0, 105, 5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(keyed_init_noise(np.arange(MD_ENVS), k0, (31, 5),
+                                          args.seed)).to(device)
+        torch.cuda.synchronize()
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+    out["keyed_x_T_ms"] = float(np.median(draw_ms[1:]))
+    print(f"  keyed x_T at {MD_ENVS} envs: {out['keyed_x_T_ms']:.3f} ms a "
+          f"denoise (host draw and copy, median of 20)", flush=True)
+    one = Mesh(0, 1, device)
+    ref_loop = md_loop(one, args.seed)
+    ref_steps = md_steps(one, store, args.seed, os.path.join(work, "md1"))
+    print(f"  one process: {MD_ENVS} envs x {MD_FRAMES} frames at "
+          f"{ref_loop['fps']:.1f} frames/s (K1 {ref_loop['K1']}, K2 "
+          f"{ref_loop['K2']}); steps {[round(m, 2) for m in ref_steps['ms']]}"
+          f" ms, losses {ref_steps['losses'].tolist()}", flush=True)
+    out["one_process"] = dict(fps=ref_loop["fps"], K1=ref_loop["K1"],
+                              K2=ref_loop["K2"], step_ms=ref_steps["ms"],
+                              losses=ref_steps["losses"].tolist())
+
+    def check(ranks, tag):
+        rec = []
+        per = MD_ENVS // len(ranks)
+        want_k1 = 5 * 10 * (MD_FRAMES // 5)
+        for r in ranks:
+            lp, st = r["loop"], r["steps"]
+            d = (lp["actions"] - ref_loop["actions"]).abs().max().item()
+            gaps = md_compare_steps(st, ref_steps, tag)
+            print(f"  {tag}, rank {lp['rank']} of {lp['world_size']} "
+                  f"({lp['backend']}): {per} envs x {MD_FRAMES} frames at "
+                  f"{lp['fps']:.1f} frames/s, K1 {lp['K1']} (want "
+                  f"{want_k1}), K2 {lp['K2']} (want {MD_FRAMES + 1}); "
+                  f"gathered actions vs one process: max {d:.3e} (tol "
+                  f"{ACTION_TOL}); steps "
+                  f"{[round(m, 2) for m in st['ms']]} ms at B="
+                  f"{MD_RECIPE['batch_size'] // len(ranks)} a rank, "
+                  f"{md_gaps_text(gaps)}; card: {smi}", flush=True)
+            if (lp["K1"], lp["K2"]) != (want_k1, MD_FRAMES + 1):
+                raise Failed(f"{tag}: rank {lp['rank']} launched K1 "
+                             f"{lp['K1']}, K2 {lp['K2']}")
+            if not d <= ACTION_TOL:
+                raise Failed(f"{tag}: the sharded loop's actions differ "
+                             f"from one process's by {d}")
+            rec.append(dict(rank=lp["rank"], backend=lp["backend"],
+                            envs=per, fps=lp["fps"], K1=lp["K1"],
+                            K2=lp["K2"], actions_max_diff=d,
+                            step_ms=st["ms"], **gaps))
+        return rec
+
+    ranks = launch(md_rank, 2, str(device), backend="gloo",
+                   args=(args.seed, store, os.path.join(work, "md2")),
+                   timeout=MD_LAUNCH_TIMEOUT)
+    out["gloo_2_ranks_one_card"] = check(ranks, "2 gloo ranks on one card")
+
+    # world size 1 over NCCL: the steps through NCCL's all_reduce
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "nccl_rendezvous"), rank=0, world_size=1)
+    try:
+        nccl = md_steps(make_mesh(device), store, args.seed,
+                        os.path.join(work, "md_nccl"))
+    finally:
+        dist.destroy_process_group()
+    if nccl["backend"] != "nccl":
+        raise Failed(f"the world-size-1 mesh ran on {nccl['backend']}")
+    gaps = md_compare_steps(nccl, ref_steps, "NCCL, 1 rank")
+    print(f"  NCCL, world size 1: steps {[round(m, 2) for m in nccl['ms']]}"
+          f" ms, {md_gaps_text(gaps)} against the no-group steps",
+          flush=True)
+    out["nccl_world_1"] = dict(step_ms=nccl["ms"], **gaps)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        # a rank a card, as many cards as split the batch and the envs
+        n = max(k for k in range(2, n_cards + 1) if MD_ENVS % k == 0
+                and MD_RECIPE["batch_size"] % k == 0)
+        ranks = launch(md_rank, n, "cuda", backend="nccl",
+                       args=(args.seed, store, os.path.join(work, "mdn")),
+                       timeout=MD_LAUNCH_TIMEOUT)
+        out["nccl_across_cards"] = check(ranks, f"NCCL across {n} cards")
+    else:
+        print(f"  NCCL across cards: not run, {n_cards} card present")
+        out["nccl_across_cards"] = f"not run: {n_cards} card present"
+    return out
+
+
+def zstd_phase(counts):
+    """The JAX package's shared eval store read through the host library's
+    zstd decoder, then cli/evaluate.py's accuracy of r5blend (EMA) on it:
+    K1 in every denoise and no other kernel."""
+    from state_policy_diffusionmodel_torch.cli import evaluate
+    from state_policy_diffusionmodel_torch.data.replay_buffer import load_zarr
+
+    zero_counts, read_counts = counts
+    path = os.path.join(SHARED_DIR, SHARED_NAME)
+    t0 = time.perf_counter()
+    buf = load_zarr(path)
+    secs = time.perf_counter() - t0
+    nbytes = sum(v.nbytes for v in buf.data.values())
+    shapes = {k: tuple(v.shape) for k, v in buf.data.items()}
+    print(f"  {path}: six arrays {shapes}, {nbytes / 1e6:.1f} MB decoded in "
+          f"{secs:.2f} s = {nbytes / 1e6 / secs:.1f} MB/s (host)", flush=True)
+    img = buf.data["img"]
+    if shapes.get("img") != (12000, 96, 96, 3) or len(shapes) != 6 or \
+            not np.isfinite(img).all() or img.min() < 0 or img.max() > 1 or \
+            buf.episode_ends.tolist() != list(range(2000, 12001, 2000)):
+        raise Failed(f"the shared store read as {shapes}, episode ends "
+                     f"{buf.episode_ends.tolist()}")
+    del buf, img
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = evaluate.main(SHARED_ARGS)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    n = read_counts()
+    acc = res["accuracy"]
+    wps = len(acc["per_window_error"]) / acc["seconds"]
+    record = None
+    if os.path.exists(SHARED_RECORD):
+        with open(SHARED_RECORD) as f:
+            record = json.load(f)["accuracy"]["overall"]
+    print(f"  accuracy of r5blend (EMA, gaussian x_T, DDIM-10) on "
+          f"{len(acc['per_window_error'])} windows: overall "
+          f"{acc['overall']:.4f}, action overall {acc['action_overall']:.4f}"
+          f"; {wps:.1f} windows/s ({eval_s:.2f} s with the store's load); "
+          f"launches "
+          f"{n}; the JAX record (other weights, a reference): "
+          f"{record if record is not None else 'not in this copy'}",
+          flush=True)
+    if not n["K1"] or any(n[k] for k in ("K2", "K3", "K4", "K5", "K6")):
+        raise Failed(f"the shared-set accuracy launched {n}")
+    if len(acc["per_window_error"]) != 120 or not np.isfinite(
+            acc["overall"]):
+        raise Failed(f"the shared-set accuracy: {acc['overall']} over "
+                     f"{len(acc['per_window_error'])} windows")
+    return dict(decoded_mb=nbytes / 1e6, read_s=secs,
+                mb_per_s=nbytes / 1e6 / secs, accuracy_overall=acc["overall"],
+                action_overall=acc["action_overall"], eval_s=eval_s,
+                windows_per_s=wps, launches=n, jax_record_overall=record)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None,
-                    help="comma-separated kernel phases to run alone after "
-                         "the build (k1, k2, k4), for iterating on a kernel")
+                    help="comma-separated phases to run alone after the "
+                         "build (k1, k2, k4, md), for iterating on a kernel "
+                         "or on the multi-device path")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2688,8 +3045,8 @@ def main() -> int:
                 print(f"    {line}")
 
     only = set(args.only.split(",")) if args.only else None
-    if only is not None and not only <= {"k1", "k2", "k4"}:
-        raise Failed(f"--only takes k1, k2 and k4, got {args.only}")
+    if only is not None and not only <= {"k1", "k2", "k4", "md"}:
+        raise Failed(f"--only takes k1, k2, k4 and md, got {args.only}")
     want = lambda k: only is None or k in only
     k1 = k1_ptxas = k1_unets = k4 = k4_ptxas = None
     if want("k1"):
@@ -2707,10 +3064,21 @@ def main() -> int:
         if want("k2"):
             with phase("K2 sample_banked vs plain"):
                 k2, k2_ptxas = check_k2(k2_cases(args.seed, device), build)
+        multi = None
+        if want("md"):
+            work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+            try:
+                with phase("collect"):
+                    collect_phase(device, work, (zero_counts, read_counts))
+                with phase("multi-device"):
+                    multi = multi_device_phase(args, device, smi, work)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
         print(json.dumps({"k1": k1, "k1_ptxas": k1_ptxas,
                           "k1_unets": k1_unets, "k4": k4,
                           "k4_ptxas": k4_ptxas,
-                          "k2": k2 if want("k2") else None}))
+                          "k2": k2 if want("k2") else None,
+                          "multi_device": multi}))
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3162,6 +3530,10 @@ def main() -> int:
             _, collected = collect_phase(device, work, counts)
         training = train_phases(args, device, cuda_ops, policy, params, stats,
                                 counts, work)
+        with phase("multi-device"):
+            multi = multi_device_phase(args, device, smi, work)
+        with phase("zstd"):
+            zst = zstd_phase(counts)
         with phase("eval"):
             evaluated = eval_phase(device, work, counts, cuda_ops)
         r4rn["training"] = r4rn_train_phase(args, cuda_ops, device, counts,
@@ -3204,6 +3576,10 @@ def main() -> int:
         "launches_run_predictions": demo["pid"]["launches"]["K1"]
         + demo["policy"]["launches"]["K1"],
         "launches_mfu": mfu_run["forward, default path"]["launches"]["K1"],
+        # each rank's, two gloo ranks on the card (128 envs, 20 frames)
+        "launches_sharded_loop": [r["K1"] for r in
+                                  multi["gloo_2_ranks_one_card"]],
+        "launches_shared_accuracy": zst["launches"]["K1"],
         # one U-Net forward's five calls at B=256, fp32 (the main path)
         "max_abs_err": max(r["max_abs_err"] for r in fp32),
         "max_abs_err_on_policy": runs["fp32"]["k1_on_policy"]["max_abs_err"],
@@ -3241,6 +3617,8 @@ def main() -> int:
         "launches_r4rn": r4rn["closed_loop"]["fp32"]["launches"]["K2"],
         "launches_run_predictions": demo["pid"]["launches"]["K2"]
         + demo["policy"]["launches"]["K2"],
+        "launches_sharded_loop": [r["K2"] for r in
+                                  multi["gloo_2_ranks_one_card"]],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2_main["ms"],
         "plain_ms": k2_main["plain_ms"],
@@ -3299,7 +3677,8 @@ def main() -> int:
                       "unet_simple": simple, "r4rn": r4rn,
                       "autoencoder": autoencoder, "native": native_run,
                       "sample": sampled, "run_predictions": demo,
-                      "mfu": mfu_run, "profile": profiled}))
+                      "mfu": mfu_run, "profile": profiled,
+                      "multi_device": multi, "zstd": zst}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ Counterpart of the JAX package's `cli/evaluate.py`, with its flags, plus
 `--device` (default cuda; cpu runs the plain PyTorch path). The run loads
 through `train.checkpoints.load_run` (hparams.yaml is parsed without
 yaml); the dataset is a zarr store of the port's reader (uncompressed,
-zlib or blosc; blosc-zstd needs the zstandard package). x_T of each
+zlib or blosc). x_T of each
 sampler call comes from a CPU generator seeded as the JAX CLI seeds its
 keys.
 """

@@ -8,7 +8,7 @@
 Counterpart of the JAX package's `cli/train_autoencoder.py`, with its flags
 and defaults, plus `--device` (default cuda; cpu runs the plain PyTorch
 path). The dataset is a zarr store of the port's reader (uncompressed,
-zlib or blosc; blosc-zstd needs the zstandard package). A run directory
+zlib or blosc). A run directory
 holds `checkpoints/epoch=K/params.npz` with the ['encoder'] and
 ['decoder'] trees: the training CLIs' `--encoder_ckpt` of both packages
 take it. `--eval_run` prints the reconstruction MSE of `--n_eval` frames

@@ -3,10 +3,16 @@
     python -m state_policy_diffusionmodel_torch.cli.train_policy \
         --dataset_dir DIR --dataset_name NAME [...]
 
+    torchrun --nproc_per_node=N -m \
+        state_policy_diffusionmodel_torch.cli.train_policy [...]
+
 Counterpart of the JAX package's `cli/train_policy.py`, with its flags and
 defaults, plus `--device` (default cuda; cpu runs the plain PyTorch path).
-The dataset is a zarr store of the port's reader (uncompressed, zlib or
-blosc; blosc-zstd needs the zstandard package). `--encoder_ckpt` takes an
+Under torchrun it trains data-parallel over the N ranks (`parallel.
+make_mesh`: NCCL on cuda, rank r on cuda:LOCAL_RANK; gloo with `--device
+cpu`); `--batch_size` stays the global batch, as in the JAX CLI, and only
+rank 0 writes the run directory and prints. The dataset is a zarr store
+of the port's reader (uncompressed, zlib or blosc). `--encoder_ckpt` takes an
 autoencoder run directory or one of its `checkpoints/epoch=K` directories
 and reads the encoder from its params.npz. The validation sample figures
 (`train/sample_viz.py`) are on unless `--no_sample_viz`; they need
@@ -121,13 +127,21 @@ def main(argv=None):
     _check_sample_viz(args)
     import torch
 
-    from .. import diffusion, resolve_device, train
+    import torch.distributed as dist
+
+    from .. import diffusion, parallel, train
     from ..data.dataset import DataModule
     from ..utils.printing import print_dataset_info, print_hyperparameters
 
-    device = resolve_device(args.device)
-    version = args.version or datetime.now().strftime("version_%Y%m%d_%H%M%S")
-    out_dir = os.path.join(args.out_dir, version)
+    mesh = parallel.make_mesh(args.device)
+    device = mesh.device
+    version = [args.version
+               or datetime.now().strftime("version_%Y%m%d_%H%M%S")]
+    if mesh.group is not None:
+        # rank 0's clock names the run on every rank
+        dist.broadcast_object_list(version, 0, group=mesh.group)
+    out_dir = os.path.join(args.out_dir, version[0])
+    say = print if mesh.is_main else (lambda *a, **k: None)
 
     cfg = diffusion.PolicyConfig(
         noise_steps=args.noise_steps,
@@ -148,15 +162,18 @@ def main(argv=None):
         device_data=args.device_data,
         early_stop=not args.no_early_stop, tensorboard=args.tensorboard,
         ema_decay=args.ema_decay, insurance_dir=args.insurance_dir)
-    print_hyperparameters(cfg, tcfg)
+    if mesh.is_main:
+        print_hyperparameters(cfg, tcfg)
 
     dm = DataModule(batch_size=args.batch_size, data_dir=args.dataset_dir,
                     T_obs=args.obs_horizon, T_pred=args.pred_horizon,
                     seed=args.seed, step_size=args.step_size)
     dm.setup(args.dataset_name)
-    print_dataset_info(args.dataset_name, len(dm.data_full),
-                       len(dm.train_idx), len(dm.val_idx),
-                       args.obs_horizon, args.pred_horizon, args.step_size)
+    if mesh.is_main:
+        print_dataset_info(args.dataset_name, len(dm.data_full),
+                           len(dm.train_idx), len(dm.val_idx),
+                           args.obs_horizon, args.pred_horizon,
+                           args.step_size)
 
     policy = diffusion.DiffusionPolicy(cfg, device)
     params = None
@@ -164,9 +181,9 @@ def main(argv=None):
         path, enc = load_encoder_tree(args.encoder_ckpt)
         params = policy.init_params(torch.Generator().manual_seed(0),
                                     encoder_params=enc)
-        print(f"loaded pretrained encoder from {path}")
+        say(f"loaded pretrained encoder from {path}")
 
-    trainer = train.Trainer(policy, tcfg, out_dir)
+    trainer = train.Trainer(policy, tcfg, out_dir, mesh=mesh)
     sample_hook = None
     if not args.no_sample_viz:
         # the reference's quarter-epoch visual feedback: full reverse
@@ -175,7 +192,7 @@ def main(argv=None):
         sample_hook = train.make_sample_hook(
             policy, dm, out_dir, tb_writer=trainer._tb,
             num_inference_steps=args.sample_viz_steps)
-    if args.profile_dir:
+    if args.profile_dir and mesh.is_main:
         from ..utils import profiling
 
         with profiling.trace(args.profile_dir) as prof:
@@ -185,7 +202,9 @@ def main(argv=None):
     else:
         result = trainer.fit(dm, params=params, resume=args.resume,
                              sample_hook=sample_hook)
-    print(f"done; final lr {result['lr']}, artifacts in {out_dir}")
+    say(f"done; final lr {result['lr']}, artifacts in {out_dir}")
+    if "RANK" in os.environ and dist.is_initialized():
+        dist.destroy_process_group()     # make_mesh created it
     return result
 
 

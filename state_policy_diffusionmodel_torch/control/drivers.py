@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..physics import CarState, hull_com_velocity
 from ..physics.car import const, div, dot2, sqrt, table
 from ..render import camera
@@ -76,7 +77,7 @@ class LaneFollowParams(NamedTuple):
 
 
 def lane_follow_params(mode, target_velocity=30.0,
-                       device="cpu") -> LaneFollowParams:
+                       device="cuda") -> LaneFollowParams:
     """PID gains of generateParallelTraj.py:41-42; mode a name of MODES or
     its index."""
     if isinstance(mode, str):
@@ -87,7 +88,8 @@ def lane_follow_params(mode, target_velocity=30.0,
         mode=int(mode))
 
 
-def lane_follow_init(B: int, device="cpu") -> LaneFollowState:
+def lane_follow_init(B: int, device="cuda") -> LaneFollowState:
+    device = resolve_device(device)
     return LaneFollowState(
         pid_steer=pid_init(B, device), pid_vel=pid_init(B, device),
         err_buf=ring_init(B, 10, device), err_buf2=ring_init(B, 3, device),

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import resolve_device
 from ..physics.car import const, div
 
 F32 = torch.float32
@@ -36,12 +37,14 @@ class PIDState(NamedTuple):
     initialized: torch.Tensor   # (B,) bool
 
 
-def pid_params(kp, ki, kd, setpoint=0.0, device="cpu") -> PIDParams:
+def pid_params(kp, ki, kd, setpoint=0.0, device="cuda") -> PIDParams:
+    device = resolve_device(device)
     return PIDParams(*(torch.as_tensor(v, dtype=F32).to(device)
                        for v in (kp, ki, kd, setpoint)))
 
 
-def pid_init(B: int, device="cpu") -> PIDState:
+def pid_init(B: int, device="cuda") -> PIDState:
+    device = resolve_device(device)
     z = torch.zeros((B,), dtype=F32, device=device)
     return PIDState(z, z, torch.zeros((B,), dtype=torch.bool, device=device))
 
@@ -66,8 +69,9 @@ class RingBuffer(NamedTuple):
     buf: torch.Tensor  # (B, N)
 
 
-def ring_init(B: int, n: int, device="cpu") -> RingBuffer:
-    return RingBuffer(torch.zeros((B, n), dtype=F32, device=device))
+def ring_init(B: int, n: int, device="cuda") -> RingBuffer:
+    return RingBuffer(torch.zeros((B, n), dtype=F32,
+                                  device=resolve_device(device)))
 
 
 def ring_push(r: RingBuffer, value: torch.Tensor) -> RingBuffer:

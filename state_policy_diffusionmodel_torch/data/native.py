@@ -17,6 +17,12 @@ library's results equal them bit for bit.
       subtract the window's first frame, divide by 2.
   lz4_decompress(block, size) -> bytes, one raw LZ4 block (blosc's lz4 and
       lz4hc streams).
+  zstd_decompress(data, size) -> bytes, zstd frames (RFC 8878; blosc's
+      zstd streams) holding `size` bytes, with a hand-written decoder: a
+      malformed or truncated input, or one of another size, raises
+      ValueError.
+  bitunshuffle(block, typesize) -> uint8 array, blosc's bitshuffle of one
+      block of a multiple of 8 elements undone.
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ def library() -> ctypes.CDLL:
         lib.normalize_positions_f32.restype = None
         lib.lz4_decompress_block.argtypes = [ptr, i64, ptr, i64]
         lib.lz4_decompress_block.restype = i64
+        lib.zstd_decompress.argtypes = [ptr, i64, ptr, i64]
+        lib.zstd_decompress.restype = i64
+        lib.bitunshuffle.argtypes = [ptr, i64, i64, ptr]
+        lib.bitunshuffle.restype = None
         lib.typed = True
     return lib
 
@@ -100,3 +110,41 @@ def lz4_decompress(block: bytes, size: int) -> bytes:
         raise ValueError(f"an LZ4 block of {src.size} bytes decoded to {n} "
                          f"bytes, expected {size}")
     return out.tobytes()
+
+
+_ZSTD_ERRORS = {-1: "is malformed or truncated",
+                -2: "does not fit in {cap} bytes",
+                -3: "needs a dictionary, which this decoder does not take",
+                -4: "fails its content checksum"}
+
+
+def zstd_decompress(data: bytes, size: int) -> bytes:
+    """The `size` bytes of content of the zstd frames in `data` (a blosc
+    stream's size is in its chunk header). Raises ValueError on a malformed
+    or truncated input, or one whose content is not `size` bytes."""
+    lib = library()
+    src = np.frombuffer(data, np.uint8)
+    size = int(size)
+    out = np.empty(max(size, 1), np.uint8)
+    n = lib.zstd_decompress(src.ctypes.data, src.size, out.ctypes.data, size)
+    if n < 0:
+        raise ValueError(f"a zstd input of {src.size} bytes "
+                         + _ZSTD_ERRORS[n].format(cap=size))
+    if n != size:
+        raise ValueError(f"a zstd input of {src.size} bytes decoded to {n} "
+                         f"bytes, expected {size}")
+    return out[:n].tobytes()
+
+
+def bitunshuffle(block: np.ndarray, typesize: int) -> np.ndarray:
+    """The elements of one bitshuffled block (uint8, a multiple of 8
+    elements of `typesize` bytes, nothing after the last)."""
+    block = np.ascontiguousarray(block, np.uint8)
+    elems = block.size // typesize
+    if elems % 8 or elems * typesize != block.size:
+        raise ValueError(f"a bitshuffled block holds a multiple of 8 whole "
+                         f"elements, not {block.size} bytes of {typesize}")
+    out = np.empty_like(block)
+    library().bitunshuffle(block.ctypes.data, elems, typesize,
+                           out.ctypes.data)
+    return out

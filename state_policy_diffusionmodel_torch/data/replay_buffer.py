@@ -11,11 +11,12 @@ a `.zip` of such a directory is read through `zipfile`.
 The JAX package writes through tensorstore with blosc by default: zstd-5
 with bitshuffle (its `disk` preset) or lz4 (`default`). This module reads
 blosc chunks itself (`_blosc_decode`): the chunk header and block offsets,
-memcpyed chunks, split streams, zlib through `zlib`, zstd through the
-`zstandard` package where it imports, lz4 and lz4hc through the port's host
-library (`data/native.py`, a hand-written LZ4 block decoder), and byte
-shuffle and bitshuffle undone in numpy, one chunk at a time. It also reads
-arrays without a compressor or with `zlib`. It writes `zlib` (level 1) by
+memcpyed chunks, split streams, zlib through `zlib`, zstd, lz4 and lz4hc
+through the port's host library (`data/native.py`: a hand-written zstd
+frame decoder and LZ4 block decoder), byte shuffle undone in numpy and
+bitshuffle in the host library, one chunk at a time; one path on every
+machine. It also
+reads arrays without a compressor or with `zlib`. It writes `zlib` (level 1) by
 default, or uncompressed, both of which the JAX package's tensorstore reads.
 
 `ZarrReplayBuffer` is the live on-disk store (the JAX package's, there
@@ -163,20 +164,6 @@ _BLOSC_CODECS = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib", 4: "zstd"}
 _BLOSC_READ = {"lz4", "lz4hc", "zlib", "zstd"}
 
 
-def _zstd_module():
-    """The `zstandard` package, or a ValueError naming it."""
-    try:
-        import zstandard
-    except ModuleNotFoundError as e:
-        raise ValueError(
-            "blosc-zstd chunks need the `zstandard` package, which is not "
-            "installed here: rewrite the store with zlib (the JAX "
-            "package's save_zarr with compressors={key: {'id': 'zlib', "
-            "'level': 1}}) or with blosc lz4, or collect the data on this "
-            "machine") from e
-    return zstandard
-
-
 def _check_codec(compressor: Optional[dict], where: str) -> None:
     """Raise, naming what is missing, unless this machine reads the codec."""
     cid = None if compressor is None else compressor.get("id")
@@ -188,8 +175,6 @@ def _check_codec(compressor: Optional[dict], where: str) -> None:
             raise ValueError(f"{where} is compressed with blosc {cname}: "
                              f"this package reads blosc "
                              f"{sorted(_BLOSC_READ)} only")
-        if cname == "zstd":
-            _zstd_module()
         return
     raise ValueError(f"{where} is compressed with {cid}: this package reads "
                      "uncompressed, zlib and blosc zarr arrays only")
@@ -199,11 +184,10 @@ def _blosc_stream(data: bytes, codec: str, size: int) -> bytes:
     """One compressed blosc stream decoded to its `size` bytes."""
     if codec == "lz4":
         return native.lz4_decompress(data, size)
+    if codec == "zstd":
+        return native.zstd_decompress(data, size)
     if codec == "zlib":
         out = zlib.decompress(data)
-    elif codec == "zstd":
-        out = _zstd_module().ZstdDecompressor().decompress(
-            data, max_output_size=size)
     else:
         raise ValueError(f"blosc stream compressed with {codec}: not read")
     if len(out) != size:
@@ -233,9 +217,7 @@ def _bitunshuffle(block: np.ndarray, typesize: int) -> np.ndarray:
     n = elems * typesize
     out = block.copy()
     if elems:
-        planes = np.unpackbits(block[:n].reshape(typesize * 8, elems // 8),
-                               axis=1, bitorder="little")
-        out[:n] = np.packbits(planes.T, axis=1, bitorder="little").reshape(-1)
+        out[:n] = native.bitunshuffle(block[:n], typesize)
     return out
 
 

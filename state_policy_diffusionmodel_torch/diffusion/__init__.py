@@ -1,6 +1,7 @@
 from . import schedules
 from .closed_loop import (
-    env_policy, init_ring_carry, make_obs_normalizers, make_ring_policy,
+    env_policy, env_policy_fn, init_ring_carry, keyed_init_noise,
+    make_obs_normalizers, make_ring_policy,
 )
 from .policy import DiffusionPolicy, PolicyConfig
 from .schedules import (
@@ -13,5 +14,5 @@ __all__ = [
     "make_schedule", "add_noise", "ddpm_step", "ddim_step", "dpmpp_2m_step",
     "ddim_timesteps", "linear_betas", "linear_betas_v2", "cosine_betas",
     "make_ring_policy", "init_ring_carry", "make_obs_normalizers",
-    "env_policy",
+    "env_policy", "env_policy_fn", "keyed_init_noise",
 ]

@@ -9,13 +9,17 @@ action ring after the selection.
 
 The policy takes the observation explicitly, `(obs uint8 (B, 96, 96, 3),
 car_position (B, 2), car_velocity (B, 2))`, in place of an env result.
-x_T at each denoise is `init_noise_fn(uid, k0)`; the default draws it from
-a CPU `torch.Generator` seeded by (seed, k0) and moves it to the device,
-so a rerun of the same rollout sees the same x_T on any device.
+x_T at each denoise is `init_noise_fn(uid, k0)`; the default,
+`keyed_init_noise`, draws each env's x_T as row `uid` of a CPU generator's
+stream seeded by (seed, k0), as the JAX policy keys its threefry draw per
+global env id: an env gets the same x_T whatever else is in the batch, on
+one rank or many, and on any device. torch cannot reproduce threefry, so
+the numbers differ from JAX's; the property holds.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -94,6 +98,43 @@ def init_ring_carry(policy: DiffusionPolicy, n_envs: int,
     }
 
 
+def keyed_init_noise(uid, k0: int, shape, seed: int = 0,
+                     uniform: bool = True,
+                     generator: Optional[torch.Generator] = None
+                     ) -> np.ndarray:
+    """(B, *shape) float32 x_T, row b a function of (seed, uid[b], k0) only.
+
+    The draw of env u at frame k0 is row u of the uniform stream of a CPU
+    `torch.Generator` seeded seed * 1_000_003 + k0, `size` numbers a row
+    (2 * size for a normal). The CPU generator fills a tensor element by
+    element in order, so a row depends on its index and not on how many
+    rows are drawn: one draw of max(uid) + 1 rows, indexed by uid, gives
+    every env its own x_T whatever else is in the batch. For uid =
+    arange(B) and `uniform` it is the draw the ring policy took before it
+    was keyed, `torch.rand((B, *shape), generator)`. A normal is Box-Muller
+    in float64 over the row's pairs (1 - u1 in (0, 1], u2), rounded to
+    float32: other samples than the unkeyed `torch.randn` drew. The cost
+    grows with the largest id, not the batch: ids are the envs' global
+    indices, so each rank draws the rows of the whole global batch up to
+    its last env and keeps its own. `generator`, when given, is that
+    freshly seeded generator, left after the draw (the ring policy's DDPM
+    noise goes on from there, as it did after the unkeyed draw)."""
+    uid = np.asarray(uid, np.int64)
+    if uid.size and uid.min() < 0:
+        raise ValueError(f"env ids must be >= 0, got {uid.min()}")
+    size = int(np.prod(shape))
+    n = size if uniform else 2 * size
+    gen = (torch.Generator().manual_seed(seed * 1_000_003 + k0)
+           if generator is None else generator)
+    rows = int(uid.max()) + 1 if uid.size else 0
+    u = torch.rand((rows, n), generator=gen).numpy()[uid]
+    if not uniform:
+        u1, u2 = 1.0 - u[:, 0::2].astype(np.float64), u[:, 1::2]
+        u = (np.sqrt(-2.0 * np.log(u1))
+             * np.cos(2.0 * np.pi * u2)).astype(np.float32)
+    return u.reshape((len(uid),) + tuple(shape))
+
+
 # straight ahead at 0.3 gas: the warm-up action of the JAX bench.py's
 # driving metrics
 WARMUP_ACTION = (0.0, 0.3, 0.0)
@@ -110,9 +151,12 @@ def make_ring_policy(policy: DiffusionPolicy, stats=None,
     -> ((B, 3) actions, carry).
 
     init_noise_fn(uid, k0) -> (B, horizon, prediction_dim) x_T for the
-    denoise at frame k0; by default a draw from a CPU generator seeded by
-    seed * 1_000_003 + k0. The ddpm sampler also draws its per-step noise
-    from that generator.
+    denoise at frame k0; by default `keyed_init_noise(uid, k0, ..., seed,
+    cfg.uniform_init)`, keyed per global env id (`uid`), so ddim and dpmpp
+    give each env the same actions however the envs are split over ranks.
+    The ddpm sampler also draws batch-shaped per-step noise, from a CPU
+    generator seeded by seed * 1_000_003 + k0: that draw depends on the
+    batch, so ddpm is not shard-invariant (nor is it in the JAX package).
 
     warmup > 0 drives WARMUP_ACTION for the first `warmup` frames, with
     no denoise, while the rings fill with real observations (the driving
@@ -131,6 +175,16 @@ def make_ring_policy(policy: DiffusionPolicy, stats=None,
     sub_idx = torch.arange(cfg.step_size - 1, L, cfg.step_size, device=dev)
     warm_action = torch.tensor(WARMUP_ACTION, dtype=torch.float32).to(dev)
     cast_cache: dict = {}
+    uid_cache: dict = {}
+
+    def keyed(uid, k0, gen):
+        # the carry keeps one uid tensor: read it back once, not a denoise
+        if uid_cache.get("src") is not uid:
+            uid_cache["src"], uid_cache["np"] = uid, uid.cpu().numpy()
+        x = keyed_init_noise(uid_cache["np"], k0,
+                             (cfg.horizon, cfg.prediction_dim), seed,
+                             cfg.uniform_init, generator=gen)
+        return torch.from_numpy(x).to(dev)
 
     def generator(k0: int) -> torch.Generator:
         # on the CPU: the same numbers whatever device the policy runs on
@@ -168,8 +222,8 @@ def make_ring_policy(policy: DiffusionPolicy, stats=None,
                                  for name, v in hist.items()})
             gen = generator(k0)
             B = uid.shape[0]
-            x_T = (policy.init_noise(B, gen)
-                   if init_noise_fn is None else init_noise_fn(uid, k0))
+            x_T = (keyed(uid, k0, gen) if init_noise_fn is None
+                   else init_noise_fn(uid, k0))
             chunk = -(-B // denoise_microbatches)
             outs = [policy.sample(
                 params, {name: v[i:i + chunk] for name, v in window.items()},
@@ -195,16 +249,22 @@ def make_ring_policy(policy: DiffusionPolicy, stats=None,
     return policy_fn
 
 
-def env_policy(policy_fn: Callable, params) -> Callable:
-    """Adapt a ring policy to `envs.vector.rollout_policy`: the returned
-    policy(carry, states, prev_res) feeds policy_fn the previous step's
-    frame, car position and hull velocity, as the JAX ring policy reads
-    them from its `prev_res`."""
+def env_policy_fn(policy_fn: Callable) -> Callable:
+    """Adapt a ring policy to `envs.vector.rollout_policy_sharded`: the
+    returned policy(params, carry, states, prev_res), the JAX ring policy's
+    signature, feeds policy_fn the previous step's frame, car position and
+    hull velocity, as the JAX ring policy reads them from its `prev_res`."""
 
-    def policy(carry, states, prev_res):
+    def policy(params, carry, states, prev_res):
         del states
         return policy_fn(params, carry, prev_res.obs,
                          prev_res.info.car_position,
                          prev_res.info.car_velocity)
 
     return policy
+
+
+def env_policy(policy_fn: Callable, params) -> Callable:
+    """Adapt a ring policy to `envs.vector.rollout_policy`: policy(carry,
+    states, prev_res), `env_policy_fn`'s policy with the params bound."""
+    return functools.partial(env_policy_fn(policy_fn), params)

@@ -241,8 +241,7 @@ class DiffusionPolicy:
         vec = torch.cat([inpaint, self.prediction_vector(batch)], dim=1)
         B = vec.shape[0]
         if t is None:
-            t = _draw(lambda shape, **kw: torch.randint(
-                0, cfg.noise_steps, shape, **kw), (B,), generator)
+            t = self._draw_t(B, generator)
         if noise is None:
             noise = _draw(torch.randn, tuple(vec.shape), generator)
         t = t.to(vec.device)
@@ -252,6 +251,19 @@ class DiffusionPolicy:
         eps = params["unet"](x_noisy[..., None], t, cond)[..., 0]
         # the mean in f32 whatever the nets compute in
         return torch.mean((noise.float() - eps.float()) ** 2)
+
+    def _draw_t(self, B: int, generator: Optional[torch.Generator]):
+        return _draw(lambda shape, **kw: torch.randint(
+            0, self.config.noise_steps, shape, **kw), (B,), generator)
+
+    def draw_t_noise(self, B: int,
+                     generator: Optional[torch.Generator] = None):
+        """(t (B,), noise (B, horizon, prediction_dim)) drawn from
+        `generator` as `loss` draws them when it is given neither."""
+        cfg = self.config
+        t = self._draw_t(B, generator)
+        return t, _draw(torch.randn, (B, cfg.horizon, cfg.prediction_dim),
+                        generator)
 
     # -- sampling -----------------------------------------------------------
     def init_noise(self, B: int, generator: Optional[torch.Generator] = None

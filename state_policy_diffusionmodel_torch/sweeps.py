@@ -23,8 +23,8 @@ num_inference_steps, and for `drive` also interp_actions.
   "row", "driving"};
 - eval: each row's policy (N(0,1) x_T, DDIM) scores `--max_windows`
   windows of `--dataset_dir/--dataset_name` (by default the shared eval
-  store `data/eval_shared/...`, blosc-zstd: reading it needs the zstandard
-  package) with `eval.position_accuracy`, and writes
+  store `data/eval_shared/...`, blosc-zstd, read through the port's own
+  zstd decoder) with `eval.position_accuracy`, and writes
   `<out>/acc_<name>.json` = {"accuracy": ...}.
 
 A row whose file exists is skipped (a partial drive file is measured

@@ -1,4 +1,5 @@
-"""Single-device training loop for the diffusion policy, PyTorch.
+"""Training loop for the diffusion policy, PyTorch, on one device or
+data-parallel over the ranks of a `parallel.Mesh`.
 
 Counterpart of `state_policy_diffusionmodel_tpu/train/loop.py`, with its
 config, schedule and artifacts: Adam with 0.5 global-norm clipping,
@@ -7,10 +8,30 @@ epoch on the epoch's last val_loss) or a half-cosine lr over the epochs,
 quarter-epoch validation, per-epoch checkpoints, an EMA of the params, the
 fp16 insurance snapshot, a STATS.pkl sidecar, resume and `metrics.jsonl`.
 
-There is no mesh and no fused multi-step program: the TPU's `lax.scan` over
-a validation interval becomes a plain loop of steps, over the device twin of
+There is no fused multi-step program: the TPU's `lax.scan` over a
+validation interval becomes a plain loop of steps, over the device twin of
 the dataset with `device_data`. Losses stay on the device until the end of
 an interval, so the host reads them once per interval, not once per step.
+
+Data parallelism (the JAX trainer's mesh) is one process a rank: the
+`Trainer`'s mesh defaults to `parallel.make_mesh()`, so a torchrun launch
+is data-parallel and a plain one is world size 1 and computes what a
+single device does. Every rank seeds the same host RNG and generator,
+computes the same global batch order, pads each global batch to a
+multiple of the world size (repeat-last, the padded rows count in the
+loss, as in JAX) and takes its block of rows; t and the noise are drawn
+at the global batch's shape and each rank keeps its rows, so a step on N
+ranks is the step on one. After the backward the gradients are averaged
+over the ranks in one flat all_reduce, before the global-norm clip (optax
+clips the reduced gradient). No DistributedDataParallel: the params are a
+dict of modules and the encoder may be frozen. No layer keeps batch
+statistics (GroupNorm throughout), so nothing else needs a reduction. The
+logged train loss and every validation loss are means over the ranks, so
+the plateau, early-stop and cosine decisions agree on every rank (a rank
+that decided alone would deadlock the others at the next collective).
+Only rank 0 writes: metrics.jsonl, checkpoints, the EMA, STATS.pkl,
+hparams.yaml, the insurance snapshot and TensorBoard; a barrier follows
+the saves at the end of `fit`. On resume every rank loads the same files.
 
 The optimizer is the JAX package's `optax.chain(clip_by_global_norm(0.5),
 inject_hyperparams(adam)(lr))` written out: optax's clip (unchanged below
@@ -37,6 +58,10 @@ import torch
 
 from ..data.dataset import DataModule, DeviceWindowDataset
 from ..diffusion.policy import DiffusionPolicy
+from ..parallel import (
+    all_reduce_mean_, barrier, make_mesh, mean_over_ranks, pad_to_multiple,
+    replicate, shard_batch,
+)
 from ..params_from_jax import _torch_leaf, params_to_jax, parse_keystr
 from . import checkpoints as ckpt_lib
 from .lr_schedule import ReduceLROnPlateau, should_early_stop
@@ -233,12 +258,15 @@ def amp_params(params: Dict[str, torch.nn.Module]) -> Dict[str, _Cast]:
 
 
 def make_train_step(policy: DiffusionPolicy, params, optimizer: Optimizer,
-                    amp: bool = False, ema=None, ema_decay: float = 0.0):
+                    amp: bool = False, ema=None, ema_decay: float = 0.0,
+                    mesh=None):
     """step(batch, lr, generator=None, t=None, noise=None) -> loss: one
     optimizer step in place on `params` (and `ema` when ema_decay > 0).
     With amp the batch and the params are cast to bf16 for the forward and
     backward (`amp_params`) and the loss is f32; the optimizer keeps the
-    fp32 masters. The loss stays on the device."""
+    fp32 masters. With a mesh, the gradients are averaged over its ranks
+    (one flat all_reduce) before the optimizer clips them. The loss (this
+    rank's) stays on the device."""
 
     def step(batch, lr: float, generator=None, t=None, noise=None):
         mods = params
@@ -249,6 +277,9 @@ def make_train_step(policy: DiffusionPolicy, params, optimizer: Optimizer,
         optimizer.zero_grad()
         loss = policy.loss(mods, batch, generator, t=t, noise=noise)
         loss.backward()
+        if mesh is not None:
+            all_reduce_mean_([p.grad for p in optimizer.params
+                              if p.grad is not None], mesh)
         optimizer.step(lr)
         if ema is not None and ema_decay > 0.0:
             ema_update(ema, params, ema_decay)
@@ -313,16 +344,30 @@ class Trainer:
     policy: DiffusionPolicy
     config: TrainConfig
     out_dir: str
+    mesh: Optional[Any] = None   # default: parallel.make_mesh()
 
     def __post_init__(self):
         self.device = self.policy.device
+        if self.mesh is None:
+            self.mesh = make_mesh(self.device)
+        if self.mesh.device != self.device:
+            raise ValueError(f"the policy lies on {self.device}, the mesh's "
+                             f"rank on {self.mesh.device}")
+        ws = self.mesh.world_size
+        if self.config.device_data and self.config.batch_size % ws:
+            # fail at construction, not mid-training
+            raise ValueError(
+                f"device_data needs batch_size ({self.config.batch_size}) "
+                f"divisible by the world size ({ws})")
+        self.is_main = self.mesh.is_main
         self.eval_step = make_eval_step(self.policy)
         self._saver = _AsyncSaver()
         self._dev_ds = None
-        os.makedirs(self.out_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.out_dir, exist_ok=True)
         self.metrics_path = os.path.join(self.out_dir, "metrics.jsonl")
         self._tb = None
-        if self.config.tensorboard:
+        if self.config.tensorboard and self.is_main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:
@@ -332,6 +377,8 @@ class Trainer:
                 self._tb = SummaryWriter(self.out_dir, flush_secs=1)
 
     def _log(self, record: Dict[str, Any]):
+        if not self.is_main:
+            return
         record["time"] = time.time()
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -352,21 +399,30 @@ class Trainer:
                                                     self.device))
         return self._dev_ds[1]
 
-    def _batch(self, dm: DataModule, idx: np.ndarray):
-        """One batch on the device: gathered there with device_data, else
-        on the host and copied. Only the image frames the conditioning
-        reads are gathered."""
+    def _batch(self, dm: DataModule, idx: np.ndarray, gen):
+        """(this rank's rows of one global batch on the device, its t, its
+        noise). The global batch of windows `idx` is padded to a multiple
+        of the world size (repeat-last) and split over the ranks; t and
+        the noise are drawn from `gen` at the padded global batch's shape,
+        the rank keeping its rows. The windows are gathered on the device
+        with device_data, else on the host and copied. Only the image
+        frames the conditioning reads are gathered."""
+        idx, _ = pad_to_multiple(np.asarray(idx), self.mesh.world_size)
+        t, noise = shard_batch(self.policy.draw_t_noise(len(idx), gen),
+                               self.mesh)
+        idx = shard_batch(idx, self.mesh)
         n_img = self.policy.config.obs_horizon
         if self.config.device_data:
-            return self._device_ds(dm).batch(idx, image_frames=n_img)
+            return (self._device_ds(dm).batch(idx, image_frames=n_img), t,
+                    noise)
         batch = dm.data_full.batch(idx, image_frames=n_img)
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch.items()}
+        return ({k: torch.from_numpy(v).to(self.device)
+                 for k, v in batch.items()}, t, noise)
 
     def _validate(self, params, dm: DataModule, gen) -> float:
         """Mean val loss: the val windows in batches (repeat-padded to full
-        batches with device_data, as the JAX fused path pads them), losses
-        read back once."""
+        batches with device_data, as the JAX fused path pads them), each
+        batch's loss averaged over the ranks, read back once."""
         bs = self.config.batch_size
         idx = np.asarray(dm.val_idx)
         if self.config.device_data:
@@ -375,9 +431,11 @@ class Trainer:
             chunks = [idx[i:i + bs] for i in range(0, len(idx), bs)]
         if not chunks:
             return float("nan")
-        losses = [self.eval_step(params, self._batch(dm, c), gen)
-                  for c in chunks]
-        return float(torch.stack(losses).mean())
+        losses = []
+        for c in chunks:
+            batch, t, noise = self._batch(dm, c, gen)
+            losses.append(self.eval_step(params, batch, t=t, noise=noise))
+        return float(mean_over_ranks(torch.stack(losses), self.mesh).mean())
 
     def fit(self, dm: DataModule, params: Optional[Dict] = None,
             sample_hook=None, resume: bool = False) -> Dict:
@@ -386,6 +444,7 @@ class Trainer:
         if params is None:
             params = self.policy.init_params(
                 torch.Generator().manual_seed(cfg.seed))
+        replicate(params, self.mesh)
         optimizer = make_optimizer(cfg, params)
         ema_on = cfg.ema_decay > 0.0
         # EMA starts as a copy of the initial params
@@ -419,13 +478,14 @@ class Trainer:
                 self._log({"event": "resume", "epoch": start_epoch, "lr": lr,
                            "step": resume_step})
         train_step = make_train_step(self.policy, params, optimizer, cfg.amp,
-                                     ema, cfg.ema_decay)
+                                     ema, cfg.ema_decay, self.mesh)
         host_rng = np.random.default_rng(cfg.seed + start_epoch)
 
         # pre-fit validation materializes the run dir + stats sidecar
         val_loss = self._validate(params, dm, gen)
-        dm.save_stats(os.path.join(self.out_dir, "STATS.pkl"))
-        ckpt_lib.save_hparams(self.out_dir, self.policy.config, cfg)
+        if self.is_main:
+            dm.save_stats(os.path.join(self.out_dir, "STATS.pkl"))
+            ckpt_lib.save_hparams(self.out_dir, self.policy.config, cfg)
         self._log({"event": "pre_val", "val_loss": val_loss})
 
         n_train_batches = max(1, len(dm.train_idx) // cfg.batch_size)
@@ -463,7 +523,7 @@ class Trainer:
             history["val_loss"].append(val_loss)
             self._log({"event": "val", "step": step_idx,
                        "val_loss": val_loss, "lr": lr})
-            if sample_hook is not None:
+            if sample_hook is not None and self.is_main:
                 sample_hook(params, step_idx)
 
         def after_epoch(epoch):
@@ -496,9 +556,13 @@ class Trainer:
             order = host_rng.permutation(np.asarray(dm.train_idx))
             batches = _index_chunks(order, cfg.batch_size, True)
             for c0 in range(0, len(batches), val_every):
-                losses = [train_step(self._batch(dm, idx), lr, gen)
-                          for idx in batches[c0:c0 + val_every]]
-                losses = torch.stack(losses).cpu().numpy()  # one read
+                losses = []
+                for idx in batches[c0:c0 + val_every]:
+                    batch, t, noise = self._batch(dm, idx, gen)
+                    losses.append(train_step(batch, lr, t=t, noise=noise))
+                # the mean over the ranks, read once
+                losses = mean_over_ranks(torch.stack(losses),
+                                         self.mesh).cpu().numpy()
                 epoch_losses.extend(np.float32(v) for v in losses)
                 for i, v in enumerate(losses):
                     if (step_idx + i + 1) % cfg.log_every == 0:
@@ -522,14 +586,16 @@ class Trainer:
             save_ema = ema is not None and (epoch % 5 == 4
                                             or epoch >= cfg.epochs - 1)
             insure = improved and cfg.insurance_dir
-            snap_p = params_to_jax(params)
-            snap_e = (params_to_jax(ema) if ema is not None
-                      and (save_ema or insure) else None)
-            self._saver.submit(self._save_epoch, snap_p, snap_e, save_ema,
-                               optimizer.state_to_jax(), epoch, float(lr),
-                               float(plateau.best), int(plateau.num_bad),
-                               int(wait), int(step_idx),
-                               last_val if improved else None)
+            if self.is_main:
+                snap_p = params_to_jax(params)
+                snap_e = (params_to_jax(ema) if ema is not None
+                          and (save_ema or insure) else None)
+                self._saver.submit(self._save_epoch, snap_p, snap_e,
+                                   save_ema, optimizer.state_to_jax(), epoch,
+                                   float(lr), float(plateau.best),
+                                   int(plateau.num_bad), int(wait),
+                                   int(step_idx),
+                                   last_val if improved else None)
             dt = time.time() - t0
             self._log({"event": "epoch", "epoch": epoch,
                        "train_loss": history["train_loss"][-1],
@@ -541,6 +607,7 @@ class Trainer:
         self._saver.wait()
         if self._tb is not None:
             self._tb.flush()
+        barrier(self.mesh)
         return {"params": params, "ema": ema, "optimizer": optimizer,
                 "history": history, "lr": lr, "step": step_idx}
 

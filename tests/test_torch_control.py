@@ -67,9 +67,9 @@ def test_pid_and_ring_buffers_match_jax():
     jupd = jax.vmap(JC.pid_update, in_axes=(None, 0, 0))
     for kp, ki, kd, sp in gains:
         jp = JC.pid_params(kp, ki, kd, sp)
-        tp = TC.pid_params(kp, ki, kd, sp)
+        tp = TC.pid_params(kp, ki, kd, sp, device="cpu")
         js = jax.vmap(lambda _: JC.pid_init())(jnp.arange(B))
-        ts = TC.pid_init(B)
+        ts = TC.pid_init(B, device="cpu")
         for _ in range(200):
             v = (rng.normal(size=B) * rng.choice([0.3, 3.0, 30.0])).astype(
                 np.float32)
@@ -80,7 +80,7 @@ def test_pid_and_ring_buffers_match_jax():
     jmean = jax.vmap(JC.ring_mean)
     for n in (3, 7, 10):
         jr = jax.vmap(lambda _: JC.ring_init(n))(jnp.arange(B))
-        tr = TC.ring_init(B, n)
+        tr = TC.ring_init(B, n, device="cpu")
         for _ in range(200):
             v = (rng.normal(size=B) * 5).astype(np.float32)
             jr, tr = jpush(jr, jnp.asarray(v)), TC.ring_push(tr, _t(v))
@@ -175,7 +175,8 @@ def test_drivers_teacher_forced_match_jax(bank4):
     jsin = jax.jit(jax.vmap(partial(JC.sinusoidal, amplitude=5.0),
                             in_axes=(0, 0, None)))
     jparams = [JC.lane_follow_params(m, 30.0) for m in JC.MODES]
-    tparams = [TC.lane_follow_params(m, 30.0) for m in TC.MODES]
+    tparams = [TC.lane_follow_params(m, 30.0, device="cpu")
+               for m in TC.MODES]
     jstates = [jax.vmap(lambda _: JC.lane_follow_init())(jnp.arange(B))
                for _ in JC.MODES]
     found_any, lost_any = np.zeros(5, bool), np.zeros(5, bool)

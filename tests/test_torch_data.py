@@ -3,10 +3,10 @@ windows, statistics, batches, the device twin, the data module's split and
 order, the zarr store in both directions and the STATS.pkl sidecar.
 
 The committed store `data/eval_shared/...zarr` is blosc-zstd compressed,
-which the port reads only where the zstandard package imports (not on the
-GPU machine; tests/test_torch_blosc.py holds its reader): its first two
-episodes are read here through the JAX package's own lazy tensorstore
-views and handed as (data, episode_ends) to both packages. The whole store (1.3 GB of
+which the port reads through its own zstd decoder (tests/test_torch_blosc.py
+and tests/test_torch_zstd.py hold its reader): its first two episodes are
+read here through the JAX package's own lazy tensorstore views and handed
+as (data, episode_ends) to both packages. The whole store (1.3 GB of
 float32 frames) is compared in one `slow` test.
 
 Tolerances: statistics, indices, splits and orders exactly equal; batch
@@ -281,7 +281,9 @@ def test_jax_zarr_with_null_and_zlib_read_by_port(tmp_path):
 
 def test_port_refuses_a_blosc_store(monkeypatch):
     """Where the zstandard package does not import (the GPU machine), the
-    port refuses the blosc-zstd store and names the package."""
+    port reads the blosc-zstd store all the same, through its own zstd
+    decoder: the first episode's arrays equal tensorstore's. A blosc codec
+    it does not read (blosclz) is refused, named."""
     import builtins
 
     real = builtins.__import__
@@ -292,8 +294,13 @@ def test_port_refuses_a_blosc_store(monkeypatch):
         return real(name, *args, **kw)
 
     monkeypatch.setattr(builtins, "__import__", no_zstandard)
-    with pytest.raises(ValueError, match="blosc-zstd.*zstandard"):
-        tr.load_zarr(STORE)
+    data, ends = _read_store(1)
+    store = tr._DirStore(STORE)
+    for k in KEYS:
+        got = tr._read_array(store, f"data/{k}", (0, int(ends[-1])))
+        np.testing.assert_array_equal(got, data[k])
+    with pytest.raises(ValueError, match="blosclz"):
+        tr._check_codec({"id": "blosc", "cname": "blosclz"}, "x")
 
 
 def test_replay_buffer_episode_api():

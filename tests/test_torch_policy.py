@@ -296,7 +296,7 @@ def test_ring_policy_r5blend_full_width_matches_jax():
 # ---------------------------------------------------------------------------
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tensorstore", "yaml",
-              "orbax", "state_policy_diffusionmodel_tpu")
+              "orbax", "zstandard", "state_policy_diffusionmodel_tpu")
 PORT_DIR = REPO / "state_policy_diffusionmodel_torch"
 
 
@@ -330,7 +330,10 @@ def test_port_sources_import_no_jax():
             "cli/train_autoencoder.py", "data/native.py",
             "utils/profiling.py", "cli/sample.py", "cli/run_predictions.py",
             "cli/visualize_dataset.py", "cli/play.py", "cli/mfu.py",
-            "sweeps.py"} <= names
+            "sweeps.py", "parallel/mesh.py", "parallel/launch.py",
+            "parallel/dryrun.py", "tools/merge_datasets.py",
+            "tools/snapshot_run.py", "tools/make_resume_sidecar.py",
+            "tools/make_shared_evalset.py"} <= names
     bad = {str(f.relative_to(REPO)): r for f in files
            for r in _imported_roots(f) if r in _FORBIDDEN}
     assert not bad
