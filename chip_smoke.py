@@ -110,9 +110,14 @@ Phases, each printed with its seconds:
               found, each episode's tile count rising; 50 steps each of
               the centre follower and
               the sinusoidal weaver, actions finite; the lane follower's
-              episodes written through ZarrReplayBuffer (zlib) into a
-              temporary directory and read back through load_zarr, equal
-              array for array;
+              episodes written through the default ZarrReplayBuffer (the
+              JAX store's blosc zstd-5 with bitshuffle, the host library's
+              encoder) into a temporary directory and read back through
+              load_zarr, equal array for array: the bytes on disk, the
+              write's seconds and MB/s (host), and the bytes of the same
+              episodes written as zlib level 1 and their load_zarr time
+              beside the default store's (warm page cache), beside the
+              card's name and power limit;
   7. training (on that store; the run written in the same directory):
      windows  the port's WindowDataset over it: 16 x 201 = 3,216 windows;
      gradients  one batch of 256 of those windows at fixed t and noise,
@@ -198,7 +203,11 @@ Phases, each printed with its seconds:
   zstd        the JAX package's shared eval store (data/eval_shared, blosc
               zstd-5 with bitshuffle, 1.33 GB decoded) read through the
               host library's zstd decoder: the six arrays, their shapes and
-              MB/s; then cli/evaluate.py accuracy of r5blend (EMA, gaussian
+              MB/s; every `img` chunk encoded again by the host library's
+              zstd encoder (blosc zstd-5, bitshuffle) and decoded by its
+              decoder, equal: encode MB/s (host) and the bytes against
+              c-blosc's on disk, beside the card's name and power limit;
+              then cli/evaluate.py accuracy of r5blend (EMA, gaussian
               x_T, DDIM-10 leading, 120 windows) on it: K1 and nothing
               else, the error and windows/s beside the JAX record's
               (results/r5/acc_r5blend_ema.json, other weights: a
@@ -1445,15 +1454,21 @@ def lane_probe(bank, device):
             states.tile_count.tolist())
 
 
-def collect_phase(device, work, counts):
+def store_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def collect_phase(device, work, counts, smi):
     """The collection path on the card: the lane follower on the 16-track
     bank (K2 each step), timed as it runs, then driven once more by
     lane_probe for what the collection does not return (the found share,
     the tile counts), its actions equal to the collected ones; the centre
     follower and the sinusoidal weaver for SHORT_STEPS steps each; the lane
-    follower's episodes written through ZarrReplayBuffer (zlib) into
-    work/card.zarr and read back through load_zarr. Returns (the store's
-    path, readings)."""
+    follower's episodes written through the default ZarrReplayBuffer (blosc
+    zstd-5 with bitshuffle) into work/card.zarr and read back through
+    load_zarr, and written once more as zlib level 1 for its size and its
+    read time. Returns (the store's path, readings)."""
     from state_policy_diffusionmodel_torch.data import (
         ZarrReplayBuffer, collect_episodes, load_zarr,
     )
@@ -1518,6 +1533,12 @@ def collect_phase(device, work, counts):
     z.meta["track_seed"] = np.asarray(DATA_SEEDS, np.int64)
     z.save_meta()
     write_s = time.perf_counter() - t0
+    with open(os.path.join(store, "data", "img", ".zarray")) as f:
+        comp = json.load(f)["compressor"]
+    if comp != {"blocksize": 0, "clevel": 5, "cname": "zstd", "id": "blosc",
+                "shuffle": 2}:
+        raise Failed(f"the default store's img is written with {comp}, not "
+                     "the JAX store's blosc zstd-5 with bitshuffle")
     t0 = time.perf_counter()
     back = load_zarr(store)
     read_s = time.perf_counter() - t0
@@ -1530,11 +1551,48 @@ def collect_phase(device, work, counts):
             and np.array_equal(back.meta["track_seed"], DATA_SEEDS)):
         raise Failed(f"episode ends {back.episode_ends} or track seeds "
                      f"{back.meta.get('track_seed')} read back wrong")
+    raw = sum(ep[k].nbytes for ep in eps for k in ep)
+    disk = store_bytes(store)
+    zl = os.path.join(work, "card_zlib.zarr")
+    t0 = time.perf_counter()
+    zz = ZarrReplayBuffer.create_empty_zarr(
+        zl, compressors={k: {"id": "zlib", "level": 1} for k in eps[0]})
+    for ep in eps:
+        zz.add_episode(ep)
+    zlib_s = time.perf_counter() - t0
+    zlib_disk = store_bytes(zl)
+    # the read side of both formats, as the trainer's load_zarr reads them:
+    # zlib-1, then the default store a second time (both warm in the page
+    # cache, just written)
+    t0 = time.perf_counter()
+    zback = load_zarr(zl)
+    zlib_read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_zarr(store)
+    read2_s = time.perf_counter() - t0
+    shutil.rmtree(zl)
+    for k in back.data:
+        if not np.array_equal(zback.data[k], back.data[k]):
+            raise Failed(f"data/{k} of the zlib-1 store reads back unlike "
+                         "the default store's")
     print(f"  {z.n_episodes} episodes, {z.n_steps} frames written through "
-          f"ZarrReplayBuffer (zlib) in {write_s:.2f} s and read back through "
+          f"ZarrReplayBuffer (blosc zstd-5, bitshuffle) in {write_s:.2f} s "
+          f"= {raw / 1e6 / write_s:.1f} MB/s (host) and read back through "
           f"load_zarr in {read_s:.2f} s: every array equal; keys "
-          f"{sorted(back.data)}", flush=True)
-    out.update(write_seconds=write_s, read_seconds=read_s)
+          f"{sorted(back.data)}; {raw} bytes -> {disk} on disk "
+          f"({raw / disk:.3f}x); the same episodes as zlib level 1: "
+          f"{zlib_disk} bytes ({zlib_disk / disk:.3f}x the default's) in "
+          f"{zlib_s:.2f} s; card: {smi}", flush=True)
+    print(f"  load_zarr (warm page cache): zlib level 1 {zlib_read_s:.2f} s "
+          f"= {raw / 1e6 / zlib_read_s:.1f} MB/s, every array equal to the "
+          f"default's; the default (blosc zstd-5, bitshuffle) again "
+          f"{read2_s:.2f} s = {raw / 1e6 / read2_s:.1f} MB/s (host); card: "
+          f"{smi}", flush=True)
+    out.update(write_seconds=write_s, read_seconds=read_s, raw_bytes=raw,
+               disk_bytes=disk, write_mb_per_s=raw / 1e6 / write_s,
+               zlib1_bytes=zlib_disk, zlib1_seconds=zlib_s,
+               zlib1_read_seconds=zlib_read_s, read2_seconds=read2_s,
+               card=smi)
     return store, out
 
 
@@ -2928,12 +2986,17 @@ def multi_device_phase(args, device, smi, work):
     return out
 
 
-def zstd_phase(counts):
+def zstd_phase(counts, smi):
     """The JAX package's shared eval store read through the host library's
-    zstd decoder, then cli/evaluate.py's accuracy of r5blend (EMA) on it:
-    K1 in every denoise and no other kernel."""
+    zstd decoder; every img chunk encoded again by its zstd encoder and
+    decoded, equal, its bytes against c-blosc's; then cli/evaluate.py's
+    accuracy of r5blend (EMA) on it: K1 in every denoise and no other
+    kernel."""
     from state_policy_diffusionmodel_torch.cli import evaluate
-    from state_policy_diffusionmodel_torch.data.replay_buffer import load_zarr
+    from state_policy_diffusionmodel_torch.data import native
+    from state_policy_diffusionmodel_torch.data.replay_buffer import (
+        _blosc_decode, load_zarr,
+    )
 
     zero_counts, read_counts = counts
     path = os.path.join(SHARED_DIR, SHARED_NAME)
@@ -2950,6 +3013,30 @@ def zstd_phase(counts):
             buf.episode_ends.tolist() != list(range(2000, 12001, 2000)):
         raise Failed(f"the shared store read as {shapes}, episode ends "
                      f"{buf.episode_ends.tolist()}")
+    with open(os.path.join(path, "data", "img", ".zarray")) as f:
+        rows = json.load(f)["chunks"][0]
+    ours = theirs = 0
+    enc_s = 0.0
+    for i in range(-(-len(img) // rows)):
+        block = np.zeros((rows,) + img.shape[1:], img.dtype)
+        part = img[i * rows:(i + 1) * rows]
+        block[:len(part)] = part
+        raw = block.tobytes()
+        t0 = time.perf_counter()
+        blob = native.blosc_compress(raw, 4, "zstd", 5, 2)
+        enc_s += time.perf_counter() - t0
+        if _blosc_decode(blob) != raw:
+            raise Failed(f"img chunk {i}: the port's blosc zstd chunk does "
+                         "not decode to its bytes")
+        ours += len(blob)
+        theirs += os.path.getsize(os.path.join(path, "data", "img",
+                                               f"{i}.0.0.0"))
+    enc_mb = img.nbytes / 1e6
+    print(f"  every img chunk ({i + 1}) encoded by the port (blosc zstd-5, "
+          f"bitshuffle, {native.N_THREADS} threads) in {enc_s:.2f} s = "
+          f"{enc_mb / enc_s:.1f} MB/s (host) and decoded equal: {ours} "
+          f"bytes against c-blosc's {theirs} on disk ({ours / theirs:.4f}x)"
+          f"; card: {smi}", flush=True)
     del buf, img
     torch.cuda.synchronize()
     zero_counts()
@@ -2979,7 +3066,9 @@ def zstd_phase(counts):
         raise Failed(f"the shared-set accuracy: {acc['overall']} over "
                      f"{len(acc['per_window_error'])} windows")
     return dict(decoded_mb=nbytes / 1e6, read_s=secs,
-                mb_per_s=nbytes / 1e6 / secs, accuracy_overall=acc["overall"],
+                mb_per_s=nbytes / 1e6 / secs, img_encode_s=enc_s,
+                img_encode_mb_per_s=enc_mb / enc_s, img_port_bytes=ours,
+                img_cblosc_bytes=theirs, accuracy_overall=acc["overall"],
                 action_overall=acc["action_overall"], eval_s=eval_s,
                 windows_per_s=wps, launches=n, jax_record_overall=record)
 
@@ -3069,7 +3158,8 @@ def main() -> int:
             work = tempfile.mkdtemp(prefix="chip_smoke_data_")
             try:
                 with phase("collect"):
-                    collect_phase(device, work, (zero_counts, read_counts))
+                    collect_phase(device, work, (zero_counts, read_counts),
+                                  smi)
                 with phase("multi-device"):
                     multi = multi_device_phase(args, device, smi, work)
             finally:
@@ -3527,13 +3617,13 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
         with phase("collect"):
-            _, collected = collect_phase(device, work, counts)
+            _, collected = collect_phase(device, work, counts, smi)
         training = train_phases(args, device, cuda_ops, policy, params, stats,
                                 counts, work)
         with phase("multi-device"):
             multi = multi_device_phase(args, device, smi, work)
         with phase("zstd"):
-            zst = zstd_phase(counts)
+            zst = zstd_phase(counts, smi)
         with phase("eval"):
             evaluated = eval_phase(device, work, counts, cuda_ops)
         r4rn["training"] = r4rn_train_phase(args, cuda_ops, device, counts,

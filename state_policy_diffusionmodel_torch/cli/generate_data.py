@@ -13,7 +13,7 @@ _modes.zarr`, `meta/track_seed`, `data/car_state` unless
 `--no_car_states`, `states_list.pkl` beside it with `--save_states`),
 plus `--device` (default cuda; cpu runs the plain PyTorch path). All
 episodes of a mode collect as one batch of envs. The store is written
-with zlib, where the JAX package writes blosc-zstd.
+as the JAX package writes it: blosc zstd-5 with bitshuffle.
 """
 
 from __future__ import annotations

@@ -16,31 +16,14 @@
 //    blosc's bitshuffle undone (an 8x8 bit transpose a group of 8
 //    elements).
 
-#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <new>
-#include <thread>
 #include <vector>
 
-namespace {
+#include "host_common.h"
 
-template <typename Fn>
-void parallel_for(int64_t n, int n_threads, Fn fn) {
-  if (n_threads <= 0) n_threads = 1;
-  std::atomic<int64_t> next(0);
-  auto worker = [&]() {
-    int64_t b;
-    while ((b = next.fetch_add(1)) < n) fn(b);
-  };
-  std::vector<std::thread> threads;
-  threads.reserve(n_threads - 1);
-  for (int t = 1; t < n_threads; ++t) threads.emplace_back(worker);
-  worker();
-  for (auto& th : threads) th.join();
-}
-
-}  // namespace
+using host::parallel_for;
 
 extern "C" {
 
@@ -186,9 +169,8 @@ struct Fail {
 
 [[noreturn]] inline void fail(Error e = kCorrupt) { throw Fail{e}; }
 
-inline int highest_bit(uint64_t v) {  // index of the highest set bit; v > 0
-  return 63 - __builtin_clzll(v);
-}
+using host::highest_bit;
+using namespace zstd_format;
 
 // Forward reader over [p, end): bytes, and bits least significant first
 // (the FSE table descriptions).
@@ -454,30 +436,6 @@ struct Huffman {
   }
 };
 
-// the predefined distributions (RFC 8878 3.1.1.3.2.2)
-const int16_t kLLDefault[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
-                                2, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2,
-                                2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
-const int16_t kMLDefault[53] = {1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1,
-                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-                                1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
-const int16_t kOFDefault[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1, 1, 1, 1, 1, 1,
-                                1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
-const uint32_t kLLBase[36] = {0,  1,  2,   3,   4,   5,    6,    7,    8,    9,     10,    11,
-                              12, 13, 14,  15,  16,  18,   20,   22,   24,   28,    32,    40,
-                              48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536};
-const uint8_t kLLBits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,  0,  0,  0,  0,  1,  1,
-                             1, 1, 2, 2, 3, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
-const uint32_t kMLBase[53] = {3,  4,  5,  6,  7,  8,  9,  10,  11,  12,   13,   14,   15,   16,
-                              17, 18, 19, 20, 21, 22, 23, 24,  25,  26,   27,   28,   29,   30,
-                              31, 32, 33, 34, 35, 37, 39, 41,  43,  47,   51,   59,   67,   83,
-                              99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387, 32771, 65539};
-const uint8_t kMLBits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1,
-                             2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
-
-const int kMaxBlock = 128 * 1024;
 
 // the state that carries from block to block within a frame
 struct FrameState {

@@ -145,7 +145,8 @@ def generate_dataset(
     """Episodes of every mode into one ReplayBuffer in the reference zarr
     schema, with `meta/track_seed` (one seed an episode, in buffer order)
     and, with save_states, the per-frame `data/car_state` vectors that let
-    eval restore any frame in O(1); saved to `path` (zlib) when given."""
+    eval restore any frame in O(1); saved to `path` (blosc zstd-5 with
+    bitshuffle, the JAX package's default) when given."""
     buffer = ReplayBuffer.create_empty_numpy()
     seed = seed0
     all_seeds = []

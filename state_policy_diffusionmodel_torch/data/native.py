@@ -1,4 +1,5 @@
-"""ctypes bindings of the port's host library (`csrc/window_sampler.cpp`).
+"""ctypes bindings of the port's host library (`csrc/window_sampler.cpp`
+and `csrc/blosc_codec.cpp`).
 
 Counterpart of `state_policy_diffusionmodel_tpu/data/native.py`, over the
 port's own copy of the C++: `kernels/build.py` compiles it with the host
@@ -23,12 +24,31 @@ library's results equal them bit for bit.
       ValueError.
   bitunshuffle(block, typesize) -> uint8 array, blosc's bitshuffle of one
       block of a multiple of 8 elements undone.
+
+From `blosc_codec.cpp` (the write side of blosc, and the two blosc codecs
+tensorstore writes that the reader above does not decode):
+
+  blosc_compress(raw, typesize, cname, clevel, shuffle) -> bytes, one
+      blosc1 chunk at c-blosc's block size (zstd, lz4, lz4hc through the
+      library; zlib through Python's zlib, called by the library a stream).
+  check_blosc(cname, clevel, shuffle), the one place where a blosc
+      compressor this package cannot write is refused.
+  zstd_compress(data, clevel) -> bytes, one zstd frame (hand-written
+      encoder). lz4_compress(data, clevel, hc=False) -> bytes, one raw LZ4
+      block.
+  shuffle(block, typesize), bitshuffle(block, typesize) -> uint8 array,
+      blosc's shuffles of one block, forward.
+  blosclz_decompress(data, size), snappy_decompress(data, size) -> bytes.
+
+An encoder that fails, or a codec the library does not write, raises;
+nothing is written in another codec's place.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import zlib
 
 import numpy as np
 
@@ -148,3 +168,154 @@ def bitunshuffle(block: np.ndarray, typesize: int) -> np.ndarray:
     library().bitunshuffle(block.ctypes.data, elems, typesize,
                            out.ctypes.data)
     return out
+
+
+# ---------------------------------------------------------------------------
+# blosc_codec.cpp
+# ---------------------------------------------------------------------------
+
+# blosc1's compressor format codes (a chunk header's flags >> 5); lz4hc is
+# written under lz4's code
+BLOSC_CODES = {"blosclz": 0, "lz4": 1, "snappy": 2, "zlib": 3, "zstd": 4}
+BLOSC_WRITTEN = ("zstd", "lz4", "lz4hc", "zlib")
+
+_STREAM_ENCODER = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p,
+                                   ctypes.c_int64, ctypes.c_void_p,
+                                   ctypes.c_int64, ctypes.c_int)
+
+
+@_STREAM_ENCODER
+def _zlib_stream(src, n, dst, cap, clevel):
+    """One blosc stream through Python's zlib (c-blosc's compress2 at the
+    chunk's clevel); 0 where it does not fit, -1 on an error."""
+    try:
+        out = zlib.compress(ctypes.string_at(src, n), clevel)
+        if len(out) > cap:
+            return 0
+        ctypes.memmove(dst, out, len(out))
+        return len(out)
+    except Exception:       # raised as ValueError by blosc_compress
+        return -1
+
+
+def codec_library() -> ctypes.CDLL:
+    """The blosc codec library, built and loaded at the first call."""
+    lib = build.library("blosc_codec")
+    if not getattr(lib, "typed", False):
+        i64, ptr, i32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+        lib.blosc_compress.argtypes = [ptr, i64, i64, i32, i32, i32, i32, ptr,
+                                       i64, i32, _STREAM_ENCODER]
+        lib.blosc_compress.restype = i64
+        lib.zstd_compress.argtypes = [ptr, i64, ptr, i64, i32]
+        lib.zstd_compress.restype = i64
+        lib.lz4_compress.argtypes = [ptr, i64, ptr, i64, i32, i32]
+        lib.lz4_compress.restype = i64
+        for name in ("shuffle", "bitshuffle"):
+            getattr(lib, name).argtypes = [ptr, i64, i64, ptr]
+            getattr(lib, name).restype = None
+        for name in ("blosclz_decompress", "snappy_decompress"):
+            getattr(lib, name).argtypes = [ptr, i64, ptr, i64]
+            getattr(lib, name).restype = i64
+        lib.typed = True
+    return lib
+
+
+_BLOSC_ERRORS = {-1: "bad arguments", -2: "an encoder failed",
+                 -4: "the output is too small"}
+
+
+def check_blosc(cname, clevel, shuffle) -> None:
+    """Raise ValueError unless blosc_compress writes this compressor:
+    cname zstd, lz4, lz4hc or zlib (naming any other), clevel 0-9, shuffle
+    0 (none), 1 (bytes) or 2 (bits)."""
+    if cname not in BLOSC_WRITTEN:
+        raise ValueError(f"cannot write blosc {cname}: this package writes "
+                         f"blosc {list(BLOSC_WRITTEN)}")
+    if clevel not in range(10) or shuffle not in (0, 1, 2):
+        raise ValueError(f"blosc clevel 0-9 and shuffle 0, 1 or 2, got "
+                         f"clevel {clevel!r}, shuffle {shuffle!r}")
+
+
+def blosc_compress(raw, typesize: int, cname: str, clevel: int,
+                   shuffle: int) -> bytes:
+    """`raw` as one blosc1 chunk, at c-blosc's block size, that c-blosc
+    (tensorstore) reads back. Raises ValueError where `check_blosc` refuses
+    the compressor or an encoder fails."""
+    check_blosc(cname, clevel, shuffle)
+    src = np.frombuffer(raw, np.uint8)
+    out = np.empty(src.size + 16, np.uint8)
+    n = codec_library().blosc_compress(
+        src.ctypes.data, src.size, int(typesize), clevel, shuffle,
+        BLOSC_CODES["lz4" if cname == "lz4hc" else cname],
+        int(cname == "lz4hc"), out.ctypes.data, out.size, N_THREADS,
+        _zlib_stream)
+    if n < 0:
+        raise ValueError(f"blosc {cname} (clevel {clevel}, shuffle "
+                         f"{shuffle}) of {src.size} bytes failed: "
+                         f"{_BLOSC_ERRORS[n]}")
+    return out[:n].tobytes()
+
+
+def _encoded(fn, data: bytes, what: str, *args) -> bytes:
+    src = np.frombuffer(data, np.uint8)
+    cap = src.size + src.size // 64 + 64   # every encoder's worst case
+    out = np.empty(cap, np.uint8)
+    n = fn(src.ctypes.data, src.size, out.ctypes.data, cap, *args)
+    if n <= 0:
+        raise ValueError(f"{what} of {src.size} bytes failed ({n})")
+    return out[:n].tobytes()
+
+
+def zstd_compress(data: bytes, clevel: int = 5) -> bytes:
+    """One zstd frame holding `data` (its content size in the header),
+    at blosc's clevel 1-9 (the match search's depth)."""
+    return _encoded(codec_library().zstd_compress, data, "zstd", int(clevel))
+
+
+def lz4_compress(data: bytes, clevel: int = 5, hc: bool = False) -> bytes:
+    """One raw LZ4 block holding `data` (lz4hc's deeper search with hc)."""
+    return _encoded(codec_library().lz4_compress, data, "lz4", int(clevel),
+                    int(hc))
+
+
+def _shuffled(name: str, block, typesize: int) -> np.ndarray:
+    block = np.ascontiguousarray(np.frombuffer(block, np.uint8))
+    out = np.zeros_like(block)
+    getattr(codec_library(), name)(block.ctypes.data, block.size,
+                                   int(typesize), out.ctypes.data)
+    return out
+
+
+def shuffle(block, typesize: int) -> np.ndarray:
+    """blosc's byte shuffle of one block: byte plane by byte plane, the
+    bytes past the last whole element as they are."""
+    return _shuffled("shuffle", block, typesize)
+
+
+def bitshuffle(block, typesize: int) -> np.ndarray:
+    """blosc's bitshuffle of one block: bit planes of a multiple of 8
+    elements, the bytes past them as they are; any other block as it is."""
+    return _shuffled("bitshuffle", block, typesize)
+
+
+def _decoded(fn, data: bytes, size: int, what: str) -> bytes:
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(max(int(size), 1), np.uint8)
+    n = fn(src.ctypes.data, src.size, out.ctypes.data, int(size))
+    if n != size:
+        raise ValueError(f"a {what} stream of {src.size} bytes decoded to "
+                         f"{n} bytes, expected {size}")
+    return out[:n].tobytes()
+
+
+def blosclz_decompress(data: bytes, size: int) -> bytes:
+    """The `size` bytes one blosclz stream decodes to; raises if it is
+    malformed or decodes to another size."""
+    return _decoded(codec_library().blosclz_decompress, data, size,
+                    "blosclz")
+
+
+def snappy_decompress(data: bytes, size: int) -> bytes:
+    """The `size` bytes one raw snappy stream decodes to; raises if it is
+    malformed or decodes to another size."""
+    return _decoded(codec_library().snappy_decompress, data, size, "snappy")

@@ -9,22 +9,31 @@ same zarr v2 group, `data/<key>`, `meta/episode_ends`, `meta/<key>` and a
 a `.zip` of such a directory is read through `zipfile`.
 
 The JAX package writes through tensorstore with blosc by default: zstd-5
-with bitshuffle (its `disk` preset) or lz4 (`default`). This module reads
-blosc chunks itself (`_blosc_decode`): the chunk header and block offsets,
-memcpyed chunks, split streams, zlib through `zlib`, zstd, lz4 and lz4hc
-through the port's host library (`data/native.py`: a hand-written zstd
-frame decoder and LZ4 block decoder), byte shuffle undone in numpy and
-bitshuffle in the host library, one chunk at a time; one path on every
-machine. It also
-reads arrays without a compressor or with `zlib`. It writes `zlib` (level 1) by
-default, or uncompressed, both of which the JAX package's tensorstore reads.
+with bitshuffle (its `disk` preset) or lz4 (`default`). This module writes
+the same stores (`COMPRESSOR_PRESETS`, `_resolve_compressor`, the JAX
+package's): blosc1 chunks written by the port's host library
+(`data/native.py::blosc_compress`: hand-written zstd and LZ4 encoders,
+forward shuffle and bitshuffle, the blocks spread over threads; zlib
+streams through Python's `zlib`), zstd, lz4, lz4hc and zlib under blosc,
+which tensorstore reads back bit for bit. It also writes `zlib`
+(`{"id": "zlib", "level": L}`) and uncompressed arrays. Writing blosc
+blosclz or snappy raises, as does an encoder that fails: nothing is
+written in another codec's place.
+
+It reads blosc chunks itself (`_blosc_decode`): the chunk header and
+block offsets, memcpyed chunks, split streams, zlib through `zlib`, zstd,
+lz4, lz4hc, blosclz and snappy through the host library (a hand-written
+zstd frame decoder, LZ4 block, blosclz and snappy decoders), byte shuffle
+undone in numpy and bitshuffle in the host library, one chunk at a time;
+one path on every machine. It also reads arrays without a compressor or
+with `zlib`.
 
 `ZarrReplayBuffer` is the live on-disk store (the JAX package's, there
 through tensorstore's resizable zarr driver): episodes append straight to
 disk as a resize of each array's `.zarray` shape and a write of the chunks
 the episode touches (a chunk that straddles two episodes is read, filled
-and rewritten whole), and reads load only the chunks they touch. Where the
-JAX store's default compressor is blosc-zstd, this one writes zlib.
+and rewritten whole), and reads load only the chunks they touch. Its
+compressor is the JAX store's.
 """
 
 from __future__ import annotations
@@ -42,7 +51,13 @@ import numpy as np
 
 from . import native
 
-DEFAULT_COMPRESSOR = {"id": "zlib", "level": 1}
+# compressor presets, the JAX package's (the reference's
+# replay_buffer.py:289-295): 'default' = blosc lz4 without shuffle, 'disk'
+# = blosc zstd-5 with bitshuffle, the one a store gets by default
+COMPRESSOR_PRESETS = {
+    "default": {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 0},
+    "disk": {"id": "blosc", "cname": "zstd", "clevel": 5, "shuffle": 2},
+}
 
 
 def _optimal_chunk_length(shape, dtype, target_bytes=2 * 1024 * 1024) -> int:
@@ -127,9 +142,10 @@ class ReplayBuffer:
     # -- persistence --------------------------------------------------------
     def save_to_path(self, path: str, chunk_length: int = -1,
                      make_zip: bool = False, compressors=None) -> None:
-        """compressors: None (zlib level 1 for every key), or a per-key dict
-        of zarr compressor specs ({'id': 'zlib', 'level': L} or None);
-        keys it does not name take zlib level 1."""
+        """compressors: None (the `disk` preset for every key), a preset's
+        name ('disk', 'default'), or a per-key dict of zarr compressor
+        specs (blosc, {'id': 'zlib', 'level': L} or None for none); keys
+        it does not name take `disk`. The JAX package's semantics."""
         save_zarr(self, path, chunk_length=chunk_length,
                   compressors=compressors)
         if make_zip:
@@ -141,27 +157,58 @@ class ReplayBuffer:
 # ---------------------------------------------------------------------------
 
 def _resolve_compressor(compressors, key: str) -> Optional[dict]:
+    """The compressor of array `key`, as the JAX package resolves it: None
+    -> `disk`, a preset's name -> the preset, a per-key dict -> its entry
+    for the key, else `disk`."""
     if compressors is None:
-        return DEFAULT_COMPRESSOR
-    if isinstance(compressors, dict) and (
-            not compressors or "id" not in compressors):
-        return compressors.get(key, DEFAULT_COMPRESSOR)
-    raise ValueError(f"compressors must be None or a per-key dict, got "
-                     f"{compressors!r}")
+        return COMPRESSOR_PRESETS["disk"]
+    if isinstance(compressors, str):
+        if compressors not in COMPRESSOR_PRESETS:
+            raise ValueError(f"no compressor preset {compressors!r}: "
+                             f"{sorted(COMPRESSOR_PRESETS)}")
+        return COMPRESSOR_PRESETS[compressors]
+    if isinstance(compressors, dict) and "id" not in compressors:
+        return compressors.get(key, COMPRESSOR_PRESETS["disk"])
+    raise ValueError(f"compressors must be None, a preset's name or a "
+                     f"per-key dict, got {compressors!r}")
 
 
-def _encode(raw: bytes, compressor: Optional[dict]) -> bytes:
+def _zarray_compressor(compressor: Optional[dict]) -> Optional[dict]:
+    """The compressor as a `.zarray` states it, and checked before anything
+    is written: blosc as tensorstore writes it (blocksize 0: c-blosc's
+    own, the only one written), zlib with its level, or None."""
+    if compressor is None:
+        return None
+    cid = compressor.get("id")
+    if cid == "zlib":
+        return {"id": "zlib", "level": int(compressor.get("level", 1))}
+    if cid != "blosc":
+        raise ValueError(f"cannot write zarr compressor {compressor!r}: this "
+                         "package writes blosc, zlib and uncompressed arrays")
+    if compressor.get("blocksize", 0) != 0:
+        raise ValueError(f"this package writes blosc at c-blosc's own block "
+                         f"size (blocksize 0), got {compressor!r}")
+    spec = {"blocksize": 0, "clevel": int(compressor.get("clevel", 5)),
+            "cname": compressor.get("cname", "lz4"), "id": "blosc",
+            "shuffle": int(compressor.get("shuffle", 1))}
+    native.check_blosc(spec["cname"], spec["clevel"], spec["shuffle"])
+    return spec
+
+
+def _encode(raw: bytes, compressor: Optional[dict], typesize: int) -> bytes:
+    """One chunk's bytes as its compressor (a `_zarray_compressor` spec)
+    stores them; `typesize` is the dtype's item size."""
     if compressor is None:
         return raw
-    if compressor.get("id") == "zlib":
-        return zlib.compress(raw, int(compressor.get("level", 1)))
-    raise ValueError(f"cannot write zarr compressor {compressor!r}: this "
-                     "package writes uncompressed and zlib arrays only")
+    if compressor["id"] == "zlib":
+        return zlib.compress(raw, compressor["level"])
+    return native.blosc_compress(raw, typesize, compressor["cname"],
+                                 compressor["clevel"], compressor["shuffle"])
 
 
-# blosc1's compressor format codes (the header's flags >> 5)
-_BLOSC_CODECS = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib", 4: "zstd"}
-_BLOSC_READ = {"lz4", "lz4hc", "zlib", "zstd"}
+# blosc1's compressor format codes (the header's flags >> 5) -> codec
+_BLOSC_CODECS = {code: name for name, code in native.BLOSC_CODES.items()}
+_BLOSC_READ = set(native.BLOSC_CODES) | {"lz4hc"}
 
 
 def _check_codec(compressor: Optional[dict], where: str) -> None:
@@ -186,6 +233,10 @@ def _blosc_stream(data: bytes, codec: str, size: int) -> bytes:
         return native.lz4_decompress(data, size)
     if codec == "zstd":
         return native.zstd_decompress(data, size)
+    if codec == "blosclz":
+        return native.blosclz_decompress(data, size)
+    if codec == "snappy":
+        return native.snappy_decompress(data, size)
     if codec == "zlib":
         out = zlib.decompress(data)
     else:
@@ -267,7 +318,9 @@ def _blosc_decode(blob: bytes) -> bytes:
 
 def _blosc_streams(blob: bytes, lo: int, hi: int, n: int, bsize: int):
     """The block at blob[lo:hi] as its n still compressed streams, or None
-    where n streams of at most bsize // n bytes do not fill it exactly."""
+    where n streams do not fill it exactly. A stream may be longer than
+    the bsize // n bytes it decodes to (c-blosc keeps a snappy stream of
+    incompressible bytes that grew); one of exactly that size is raw."""
     if bsize % n:
         return None
     pos, parts = lo, []
@@ -276,7 +329,7 @@ def _blosc_streams(blob: bytes, lo: int, hi: int, n: int, bsize: int):
             return None
         c = int(np.frombuffer(blob, "<i4", 1, pos)[0])
         pos += 4
-        if c <= 0 or c > bsize // n or pos + c > hi:
+        if c <= 0 or pos + c > hi:
             return None
         parts.append(blob[pos:pos + c])
         pos += c
@@ -306,6 +359,7 @@ def _write_array(path: str, arr: np.ndarray, chunk_len: int,
     the full chunk shape (the last padded with zeros, as zarr stores edge
     chunks), files named `i.0.0...`."""
     arr = np.ascontiguousarray(arr)
+    compressor = _zarray_compressor(compressor)
     if os.path.isdir(path):
         shutil.rmtree(path)
     os.makedirs(path)
@@ -324,8 +378,9 @@ def _write_array(path: str, arr: np.ndarray, chunk_len: int,
             pad = np.zeros((chunk_len,) + arr.shape[1:], arr.dtype)
             pad[:block.shape[0]] = block
             block = pad
+        blob = _encode(block.tobytes(), compressor, arr.itemsize)
         with open(os.path.join(path, f"{i}{tail}"), "wb") as f:
-            f.write(_encode(block.tobytes(), compressor))
+            f.write(blob)
 
 
 def save_zarr(buffer: ReplayBuffer, path: str, chunk_length: int = -1,
@@ -499,10 +554,10 @@ class ZarrReplayBuffer(ReplayBuffer):
     the chunks the episode touches; `drop_episode` shrinks the shapes and
     removes the chunks wholly past the end. An existing store at `path` is
     reopened, not replaced. `data[k]` is a lazy view; `get_episode` and
-    `get_steps_slice` read only the chunks they need. compressors: None
-    (zlib level 1 for every key) or a per-key dict ({'id': 'zlib',
-    'level': L} or None); `meta/episode_ends` is uncompressed, as the JAX
-    store writes it.
+    `get_steps_slice` read only the chunks they need. compressors: as
+    `save_to_path`'s (None: the `disk` preset, blosc zstd-5 with
+    bitshuffle, as the JAX store writes); `meta/episode_ends` is
+    uncompressed, as the JAX store writes it.
     """
 
     def __init__(self, path: str, compressors=None, chunk_length: int = -1):
@@ -567,6 +622,7 @@ class ZarrReplayBuffer(ReplayBuffer):
                              _resolve_compressor(self._compressors, k))
                 self._keys.append(k)
             meta = self._set_shape(k, start + t)
+            comp = _zarray_compressor(meta["compressor"])
             c = meta["chunks"][0]
             if tuple(meta["chunks"][1:]) != v.shape[1:] \
                     or np.dtype(meta["dtype"]) != v.dtype:
@@ -585,8 +641,9 @@ class ZarrReplayBuffer(ReplayBuffer):
                 block[a - lo:b - lo] = v[a - start:b - start]
                 name = os.path.join(self._array_dir(k), f"{i}{tail}")
                 os.makedirs(os.path.dirname(name), exist_ok=True)
+                blob = _encode(block.tobytes(), comp, v.itemsize)
                 with open(name, "wb") as f:
-                    f.write(_encode(block.tobytes(), meta["compressor"]))
+                    f.write(blob)
         self.episode_ends = np.append(self.episode_ends, start + t)
         self._flush_meta()
         self._refresh()

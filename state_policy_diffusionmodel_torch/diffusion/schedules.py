@@ -121,12 +121,15 @@ def ddim_step(sched: DiffusionSchedule, eps: torch.Tensor, t, prev_t,
 def dpmpp_2m_step(sched: DiffusionSchedule, eps: torch.Tensor, t, prev_t,
                   x_t: torch.Tensor, m_prev: torch.Tensor,
                   lam_prev: torch.Tensor, second_order: bool,
-                  clip_sample: bool = True):
+                  clip_sample: bool = True, x0_fix=None):
     """One DPM-Solver++(2M) multistep update (data-prediction form).
 
     m_prev, lam_prev: the previous step's x0 prediction and log-SNR.
     second_order: False on the first step (no history) and on the last
-    (lower-order final). Returns (x_next, m0, lam_s)."""
+    (lower-order final). x0_fix: an optional function applied to the x0
+    prediction after the clip (x0-space inpainting; the JAX package keeps
+    it for models trained without the input constraint, and its sampler
+    overwrites x_t instead). Returns (x_next, m0, lam_s)."""
     acp_s = _index(sched.alphas_cumprod, t)
     acp_p = _acp_prev(sched, prev_t)
     alpha_s, sigma_s = torch.sqrt(acp_s), torch.sqrt(1.0 - acp_s)
@@ -138,6 +141,8 @@ def dpmpp_2m_step(sched: DiffusionSchedule, eps: torch.Tensor, t, prev_t,
     m0 = (x_t - sigma_s * eps) / alpha_s
     if clip_sample:
         m0 = torch.clamp(m0, -1.0, 1.0)
+    if x0_fix is not None:
+        m0 = x0_fix(m0)
 
     lam_s = torch.log(alpha_s / sigma_s)
     lam_p = torch.log(alpha_p / sigma_p)

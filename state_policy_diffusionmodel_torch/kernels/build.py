@@ -4,11 +4,12 @@ and load them through ctypes.
 Each source under `state_policy_diffusionmodel_torch/csrc/` has a plain C
 interface (no PyTorch headers), so one compiler call turns it into a shared
 library in seconds: `nvcc` for the kernels (`SOURCES`), the host C++
-compiler for the host library (`HOST_SOURCES`: the window gather and the
-LZ4 decoder). Libraries go to `build/` at the repository root, named by a
-hash of the source, of every shared header (`csrc/*.cuh`, for the kernels)
-and of the flags, so an edited source or header builds anew and an
-unchanged one is loaded as it is; the compiler's log is kept beside each
+compiler for the host libraries (`HOST_SOURCES`: the window gather and the
+blosc codecs' decoders, and the blosc codecs' encoders). Libraries go to
+`build/` at the repository root, named by a hash of the source, of every
+shared header (`csrc/*.cuh` for the kernels, `csrc/*.h` for the host
+libraries) and of the flags, so an edited source or header builds anew and
+an unchanged one is loaded as it is; the compiler's log is kept beside each
 library (`.log`) and read back with it. A library is written under a name
 of its own process and renamed into place, so processes that build the
 same library at once each load a whole one. Nothing is built when this
@@ -44,7 +45,8 @@ SOURCES = {"attention_core": "attention_core.cu",
 # give the numpy versions' float32 results, which FMA contraction would
 # change, and build/ may be shared by hosts of different CPUs
 HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
-HOST_SOURCES = {"window_sampler": "window_sampler.cpp"}
+HOST_SOURCES = {"window_sampler": "window_sampler.cpp",
+                "blosc_codec": "blosc_codec.cpp"}
 
 
 @dataclass
@@ -86,13 +88,16 @@ def _source(name: str) -> Path:
 
 def _target(name: str) -> Path:
     """The library's path in build/: its name and a hash of its source, of
-    every header a kernel source may include, and of the flags."""
+    every header it may include (`csrc/*.cuh` for a kernel, `csrc/*.h` for
+    the host library), and of the flags."""
     h = hashlib.sha256(_source(name).read_bytes())
     if name in SOURCES:
         for header in sorted(CSRC_DIR.glob("*.cuh")):
             h.update(header.name.encode() + b"\0" + header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
     else:
+        for header in sorted(CSRC_DIR.glob("*.h")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
         h.update(" ".join(HOST_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -61,3 +61,14 @@ def pixel_window_centers(device) -> torch.Tensor:
     wx = (cc + 0.5) * (WINDOW_W / STATE_W)
     wy = (STATE_H - 1 - rr + 0.5) * (WINDOW_H / STATE_H)
     return torch.stack([wx, wy], -1).to(torch.float32)
+
+
+def pixel_world_coords(scroll: torch.Tensor,
+                       angle: torch.Tensor) -> torch.Tensor:
+    """(..., 96, 96, 2) world coordinates of every pixel centre of the
+    state image, for scroll (..., 2) and angle (...)."""
+    scroll = torch.as_tensor(scroll)
+    angle = torch.as_tensor(angle, device=scroll.device)
+    return window_to_world(pixel_window_centers(scroll.device),
+                           scroll[..., None, None, :],
+                           angle[..., None, None])

@@ -9,7 +9,7 @@ on seed 900, right on 901), 2 center-follow (910, 911), 2 sinusoidal with
 amplitude 5 (920, 921), at target velocity 30, with per-frame car states;
 `meta/track_seed` and `meta/driver_id` (0 lane_follow, 1 center_follow,
 2 sinusoidal). Collected by the port's `data.collect_episodes`; written
-zlib (the port writes zlib only), to
+blosc zstd-5 with bitshuffle (the JAX tool's compressor), to
 `<out>/shared_eval_dataset_6_episodes_3_drivers.zarr`.
 
 Unlike the JAX tool, it refuses to write over an existing store unless

@@ -8,7 +8,8 @@ blend of a lane-follow and a sinusoidal/PID dataset). Keys are
 intersected (sidecars such as h_action or car_state drop out where a
 source lacks them); `meta/track_seed` concatenates (-1 for a source
 without it), so per-episode replays keep working. The inputs are any
-store the port reads (uncompressed, zlib, blosc); the output is zlib.
+store the port reads (uncompressed, zlib, blosc); the output is the JAX
+package's default, blosc zstd-5 with bitshuffle.
 """
 
 from __future__ import annotations

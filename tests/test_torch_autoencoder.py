@@ -19,6 +19,7 @@ Tolerances:
   losses after a few steps carry it.
 """
 
+import json
 import os
 import pathlib
 
@@ -218,7 +219,9 @@ def test_cli_trains_evaluates_and_its_run_feeds_the_policy_clis(tmp_path,
     data = str(tmp_path / "ds.zarr")
     _store(data, np.random.default_rng(6))
     with open(os.path.join(data, "data", "img", ".zarray")) as f:
-        assert '"zlib"' in f.read()
+        comp = json.load(f)["compressor"]        # the JAX store's default
+    assert (comp["id"], comp["cname"], comp["clevel"], comp["shuffle"]) == \
+        ("blosc", "zstd", 5, 2)
     res = tcli.main(["--dataset", data, "--epochs", "1", "--batch_size",
                      "64", "--out_dir", str(tmp_path / "runs"), "--version",
                      "v", "--device", "cpu"])

@@ -8,13 +8,17 @@ the JAX package's tensorstore, on CPU.
   frames are 1.33 GB; the whole of it is a `slow` test, against the JAX
   package's `load_zarr`).
 - Stores written by the JAX package's `save_zarr` (tensorstore) with blosc
-  zstd, lz4, lz4hc and zlib, each with shuffle 0, 1 and 2 and with clevel
-  0 (memcpyed chunks) and 5, read back exactly, with lengths that leave a
-  partial chunk, a leftover block and blocks whose element count is not a
+  zstd, lz4, lz4hc, zlib, blosclz and snappy (every codec tensorstore
+  writes), each with shuffle 0, 1 and 2 and with clevel 0 (memcpyed
+  chunks) and 5, read back exactly, with lengths that leave a partial
+  chunk, a leftover block and blocks whose element count is not a
   multiple of 8 (bitshuffle stores those as they are).
+- The blosclz and snappy decoders refuse truncated streams, streams of
+  another size, and bytes mutated at random (an error or a wrong output,
+  never a read or write past a buffer).
 - Without the zstandard package a zstd store is read all the same (the
-  port's own zstd decoder); blosclz raises naming it; an lz4 store is read
-  through the port's own decoder.
+  port's own zstd decoder); a codec the port does not read (gzip) raises
+  naming it; an lz4 store is read through the port's own decoder.
 """
 
 import builtins
@@ -25,6 +29,7 @@ import pytest
 import tensorstore as ts
 
 from state_policy_diffusionmodel_tpu.data import replay_buffer as jrb
+from state_policy_diffusionmodel_torch.data import native
 from state_policy_diffusionmodel_torch.data import replay_buffer as trb
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -83,7 +88,8 @@ def _buffer(n, seed):
 
 @pytest.mark.parametrize("clevel", [0, 5])
 @pytest.mark.parametrize("shuffle", [0, 1, 2])
-@pytest.mark.parametrize("cname", ["zstd", "lz4", "lz4hc", "zlib"])
+@pytest.mark.parametrize("cname", ["zstd", "lz4", "lz4hc", "zlib", "blosclz",
+                                   "snappy"])
 def test_jax_blosc_stores_read_back_exactly(tmp_path, cname, shuffle,
                                             clevel):
     # 70,001 rows in chunks of 33,333: a partial last chunk; blocks of the
@@ -102,6 +108,52 @@ def test_jax_blosc_stores_read_back_exactly(tmp_path, cname, shuffle,
     assert np.array_equal(got.meta["track_seed"], buf.meta["track_seed"])
 
 
+@pytest.mark.parametrize("cname", ["blosclz", "snappy"])
+def test_blosclz_and_snappy_refuse_malformed_streams(tmp_path, cname):
+    # float32 without shuffle, one block split into 4 streams: the first
+    # stream holds the block's first quarter of bytes
+    data = (b"the lazy dog jumps over the quick brown fox; " * 900
+            + bytes(range(256)) * 20)
+    buf = jrb.ReplayBuffer.create_empty_numpy()
+    buf.add_episode({"f": np.frombuffer(data, np.float32)})
+    jrb.save_zarr(buf, str(tmp_path / "s.zarr"), compressors={k: {
+        "id": "blosc", "cname": cname, "clevel": 5, "shuffle": 0}
+        for k in ("f", "episode_ends")})
+    blob = (tmp_path / "s.zarr" / "data" / "f" / "0").read_bytes()
+    nbytes, blocksize = (int(v) for v in np.frombuffer(blob, "<u4", 2, 4))
+    assert (blob[2], nbytes, blocksize) == (
+        0 if cname == "blosclz" else 0x40, len(data), len(data))
+    size = int(np.frombuffer(blob, "<i4", 1, 20)[0])
+    stream, data = blob[24:24 + size], data[:len(data) // 4]
+    assert size < len(data)
+    decode = getattr(native, f"{cname}_decompress")
+    assert decode(stream, len(data)) == data
+    for n in (1, 2, len(stream) // 2, len(stream) - 1):
+        with pytest.raises(ValueError):
+            decode(stream[:n], len(data))
+    with pytest.raises(ValueError):
+        decode(stream, len(data) - 1)
+    # mutated streams: the library's decoder returns -1 or a size within
+    # the output, and writes nothing past it (a guard of 64 bytes behind
+    # the output keeps its fill); the wrapper raises or returns exactly
+    # len(data) bytes. Reads past the input are not visible here.
+    raw = getattr(native.codec_library(), f"{cname}_decompress")
+    rng = np.random.default_rng(0)
+    for _ in range(3000):
+        bad = bytearray(stream)
+        for i in rng.integers(0, len(bad), rng.integers(1, 4)):
+            bad[i] = rng.integers(0, 256)
+        src = np.frombuffer(bytes(bad), np.uint8)
+        out = np.full(len(data) + 64, 0xA5, np.uint8)
+        n = raw(src.ctypes.data, src.size, out.ctypes.data, len(data))
+        assert n == -1 or 0 <= n <= len(data), n
+        assert (out[len(data):] == 0xA5).all()
+        try:
+            assert len(decode(bytes(bad), len(data))) == len(data)
+        except ValueError:
+            pass
+
+
 def _block_zstandard(monkeypatch):
     real = builtins.__import__
 
@@ -115,12 +167,15 @@ def _block_zstandard(monkeypatch):
 
 def test_missing_codecs_are_named(tmp_path, monkeypatch):
     buf = _buffer(100, seed=1)
-    for cname in ("zstd", "lz4", "blosclz"):
+    keys = [*buf.data, "episode_ends", *buf.meta]
+    for cname in ("zstd", "lz4"):
         jrb.save_zarr(buf, str(tmp_path / f"{cname}.zarr"), compressors={
             k: {"id": "blosc", "cname": cname, "clevel": 5, "shuffle": 2}
-            for k in [*buf.data, "episode_ends", *buf.meta]})
-    with pytest.raises(ValueError, match="blosclz"):
-        trb.load_zarr(str(tmp_path / "blosclz.zarr"))
+            for k in keys})
+    jrb.save_zarr(buf, str(tmp_path / "gzip.zarr"), compressors={
+        k: {"id": "gzip", "level": 5} for k in keys})
+    with pytest.raises(ValueError, match="gzip"):
+        trb.load_zarr(str(tmp_path / "gzip.zarr"))
     # zstd needs nothing but the port's host library either
     _block_zstandard(monkeypatch)
     got = trb.load_zarr(str(tmp_path / "zstd.zarr"))

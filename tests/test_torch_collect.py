@@ -144,15 +144,19 @@ def _assert_same(got, want):
         np.testing.assert_array_equal(got.meta[k], want.meta[k])
 
 
-@pytest.mark.parametrize("codec", ["zlib", "none"])
+@pytest.mark.parametrize("codec", ["default", "zlib", "none"])
 def test_port_live_store_loads_in_jax(tmp_path, codec):
     """Three episodes appended (chunks of 4 rows, so chunks straddle
     episodes), reopened, one dropped and one appended again: the store
     reads the same in the JAX package's load_zarr, in the port's, and
-    through the live store's own lazy reads."""
+    through the live store's own lazy reads. By default it is the JAX
+    store's blosc zstd-5 with bitshuffle; zlib and no compressor when
+    asked for."""
     path = str(tmp_path / "live.zarr")
     keys = ("img", "position", "velocity", "action", "car_state")
-    comp = None if codec == "zlib" else {k: None for k in keys}
+    comp = {"default": None,
+            "zlib": {k: {"id": "zlib", "level": 1} for k in keys},
+            "none": {k: None for k in keys}}[codec]
     eps = _episodes(1)
     ref = trb.ReplayBuffer()
     z = trb.ZarrReplayBuffer.create_empty_zarr(path, compressors=comp,
@@ -175,8 +179,10 @@ def test_port_live_store_loads_in_jax(tmp_path, codec):
     z.save_meta()
     ref.meta["track_seed"] = z.meta["track_seed"]
     meta = trb._array_meta(trb._DirStore(path), "data/img")
-    assert meta["compressor"] == (None if codec == "none"
-                                  else trb.DEFAULT_COMPRESSOR)
+    assert meta["compressor"] == {
+        "default": {"blocksize": 0, "clevel": 5, "cname": "zstd",
+                    "id": "blosc", "shuffle": 2},
+        "zlib": {"id": "zlib", "level": 1}, "none": None}[codec]
     assert meta["shape"][0] == 17 and meta["chunks"][0] == 4
     # no chunk file past the end: 17 rows of 4 are five chunks
     assert sorted(f for f in os.listdir(os.path.join(path, "data", "img"))

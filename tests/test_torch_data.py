@@ -283,7 +283,7 @@ def test_port_refuses_a_blosc_store(monkeypatch):
     """Where the zstandard package does not import (the GPU machine), the
     port reads the blosc-zstd store all the same, through its own zstd
     decoder: the first episode's arrays equal tensorstore's. A blosc codec
-    it does not read (blosclz) is refused, named."""
+    it does not read (ndlz, a blosc2 codec) is refused, named."""
     import builtins
 
     real = builtins.__import__
@@ -299,8 +299,8 @@ def test_port_refuses_a_blosc_store(monkeypatch):
     for k in KEYS:
         got = tr._read_array(store, f"data/{k}", (0, int(ends[-1])))
         np.testing.assert_array_equal(got, data[k])
-    with pytest.raises(ValueError, match="blosclz"):
-        tr._check_codec({"id": "blosc", "cname": "blosclz"}, "x")
+    with pytest.raises(ValueError, match="ndlz"):
+        tr._check_codec({"id": "blosc", "cname": "ndlz"}, "x")
 
 
 def test_replay_buffer_episode_api():

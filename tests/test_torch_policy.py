@@ -111,6 +111,37 @@ def test_ddim_and_dpmpp_steps_match(t, prev_t):
             _close(a, b, 1e-6)
 
 
+@pytest.mark.parametrize("t,prev_t", [(900, 800), (99, -1), (450, 350)])
+def test_dpmpp_x0_fix_matches(t, prev_t):
+    """The x0-space hook: a fix that pins the first two frames of the x0
+    prediction and halves the rest, applied after the clip as in JAX."""
+    eps, x, m_prev = _step_inputs(t)
+    js_s, ts_s = js.make_schedule(1000), ts.make_schedule(1000, device="cpu")
+    pin = np.random.default_rng(t).uniform(-1, 1, x[:, :2].shape).astype(
+        np.float32)
+
+    def jfix(m):
+        return (m * 0.5).at[:, :2].set(jnp.asarray(pin))
+
+    def tfix(m):
+        m = m * 0.5
+        m[:, :2] = torch.from_numpy(pin)
+        return m
+
+    for second in (False,) if prev_t < 0 else (False, True):
+        want = js.dpmpp_2m_step(js_s, jnp.asarray(eps), t, prev_t,
+                                jnp.asarray(x), jnp.asarray(m_prev),
+                                jnp.asarray(np.float32(-1.5)),
+                                jnp.asarray(second), x0_fix=jfix)
+        got = ts.dpmpp_2m_step(ts_s, torch.from_numpy(eps), t, prev_t,
+                               torch.from_numpy(x), torch.from_numpy(m_prev),
+                               torch.tensor(np.float32(-1.5)), second,
+                               x0_fix=tfix)
+        np.testing.assert_array_equal(got[1][:, :2].numpy(), pin)
+        for a, b in zip(got, want):
+            _close(a, b, 1e-6)
+
+
 @pytest.mark.parametrize("t", [999, 500, 1, 0])
 def test_ddpm_step_and_add_noise_match(t):
     eps, x, z = _step_inputs(t + 1)

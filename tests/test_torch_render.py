@@ -285,3 +285,24 @@ def test_camera_matches_jax():
     np.testing.assert_allclose(back.numpy(), p, rtol=0, atol=1e-4)
     np.testing.assert_array_equal(tcam.pixel_window_centers("cpu").numpy(),
                                   np.asarray(jcam.pixel_window_centers()))
+
+
+def test_pixel_world_coords_matches_jax():
+    """The world point under every pixel centre, for a batch of cameras
+    and for one, against the JAX function vmapped."""
+    from state_policy_diffusionmodel_tpu.render import camera as jcam
+    from state_policy_diffusionmodel_torch.render import camera as tcam
+
+    rng = np.random.default_rng(4)
+    ang = rng.uniform(-3, 3, 8).astype(np.float32)
+    scroll = rng.uniform(-50, 50, (8, 2)).astype(np.float32)
+    want = np.asarray(jax.vmap(jcam.pixel_world_coords)(
+        jnp.asarray(scroll), jnp.asarray(ang)))
+    got = tcam.pixel_world_coords(torch.from_numpy(scroll),
+                                  torch.from_numpy(ang))
+    assert got.shape == (8, 96, 96, 2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    one = tcam.pixel_world_coords(torch.from_numpy(scroll[3]),
+                                  torch.tensor(ang[3]))
+    assert one.shape == (96, 96, 2)
+    np.testing.assert_allclose(one.numpy(), want[3], rtol=0, atol=1e-4)
