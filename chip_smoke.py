@@ -118,6 +118,15 @@ Phases, each printed with its seconds:
               episodes written as zlib level 1 and their load_zarr time
               beside the default store's (warm page cache), beside the
               card's name and power limit;
+     codecs   the first CODEC_EPISODES (4) of those episodes, read from
+              that store, written through save_to_path with each zarr
+              compressor of CODEC_SPECS (gzip 5, bz2 1, zstd 3, blosc
+              blosclz-5 and snappy-5 with byte shuffle, blosc lz4-5 with
+              auto shuffle and blocksize 65,536) on every array, read back
+              through load_zarr, equal array for array, each `.zarray`
+              stating the compressor as tensorstore would: the bytes on
+              disk, the write's seconds and MB/s and the read's (host),
+              beside the card's name and power limit;
   7. training (on that store; the run written in the same directory):
      windows  the port's WindowDataset over it: 16 x 201 = 3,216 windows;
      gradients  one batch of 256 of those windows at fixed t and noise,
@@ -1594,6 +1603,81 @@ def collect_phase(device, work, counts, smi):
                zlib1_read_seconds=zlib_read_s, read2_seconds=read2_s,
                card=smi)
     return store, out
+
+
+# the codecs step: the zarr compressors the JAX package's store takes
+# beyond its presets, each on every array of the first CODEC_EPISODES
+# collected episodes
+CODEC_EPISODES = 4
+CODEC_SPECS = [
+    ("gzip 5", {"id": "gzip", "level": 5}),
+    ("bz2 1", {"id": "bz2", "level": 1}),
+    ("zstd 3", {"id": "zstd", "level": 3}),
+    ("blosc blosclz-5, byte shuffle",
+     {"id": "blosc", "cname": "blosclz", "clevel": 5, "shuffle": 1}),
+    ("blosc snappy-5, byte shuffle",
+     {"id": "blosc", "cname": "snappy", "clevel": 5, "shuffle": 1}),
+    ("blosc lz4-5, auto shuffle, blocksize 65,536",
+     {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": -1,
+      "blocksize": 65536}),
+]
+
+
+def codecs_phase(store, work, smi):
+    """The first CODEC_EPISODES episodes of the collected store written
+    through save_to_path with each of CODEC_SPECS (every array) and read
+    back through load_zarr, equal; each spec's bytes, write and read
+    seconds (host). Returns one record a spec."""
+    from state_policy_diffusionmodel_torch.data import (
+        ReplayBuffer, ZarrReplayBuffer, load_zarr,
+    )
+    from state_policy_diffusionmodel_torch.data.replay_buffer import (
+        _zarray_compressor,
+    )
+
+    z = ZarrReplayBuffer(store)
+    buf = ReplayBuffer()
+    for i in range(CODEC_EPISODES):
+        buf.add_episode(z.get_episode(i))
+    buf.meta["track_seed"] = np.asarray(z.meta["track_seed"][:CODEC_EPISODES])
+    raw = sum(v.nbytes for v in buf.data.values())
+    keys = [*buf.data, "episode_ends", *buf.meta]
+    out = []
+    for name, spec in CODEC_SPECS:
+        path = os.path.join(work, "codec.zarr")
+        t0 = time.perf_counter()
+        buf.save_to_path(path, compressors={k: spec for k in keys})
+        write_s = time.perf_counter() - t0
+        disk = store_bytes(path)
+        t0 = time.perf_counter()
+        back = load_zarr(path)
+        read_s = time.perf_counter() - t0
+        with open(os.path.join(path, "data", "img", ".zarray")) as f:
+            stated = json.load(f)["compressor"]
+        shutil.rmtree(path)
+        if stated != _zarray_compressor(spec):
+            raise Failed(f"{name}: data/img's .zarray states {stated}")
+        for k, v in buf.data.items():
+            if not (back.data[k].dtype == v.dtype
+                    and np.array_equal(back.data[k], v)):
+                raise Failed(f"{name}: data/{k} reads back unlike the "
+                             "episodes")
+        if not (np.array_equal(back.episode_ends, buf.episode_ends)
+                and np.array_equal(back.meta["track_seed"],
+                                   buf.meta["track_seed"])):
+            raise Failed(f"{name}: episode ends or track seeds read back "
+                         "wrong")
+        print(f"  {name}: {buf.n_episodes} episodes, {buf.n_steps} frames, "
+              f"{raw} bytes -> {disk} on disk ({raw / disk:.3f}x); write "
+              f"{write_s:.2f} s = {raw / 1e6 / write_s:.1f} MB/s, load_zarr "
+              f"{read_s:.2f} s = {raw / 1e6 / read_s:.1f} MB/s (host), every "
+              f"array equal; card: {smi}", flush=True)
+        out.append(dict(spec=name, compressor=stated, frames=buf.n_steps,
+                        raw_bytes=raw, disk_bytes=disk, write_seconds=write_s,
+                        write_mb_per_s=raw / 1e6 / write_s,
+                        read_seconds=read_s, read_mb_per_s=raw / 1e6 / read_s,
+                        equal=True, card=smi))
+    return out
 
 
 def check_k1_eval_batches(cuda_ops, device):
@@ -3617,7 +3701,9 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
         with phase("collect"):
-            _, collected = collect_phase(device, work, counts, smi)
+            store, collected = collect_phase(device, work, counts, smi)
+        with phase("codecs"):
+            codecs = codecs_phase(store, work, smi)
         training = train_phases(args, device, cuda_ops, policy, params, stats,
                                 counts, work)
         with phase("multi-device"):
@@ -3768,7 +3854,8 @@ def main() -> int:
                       "autoencoder": autoencoder, "native": native_run,
                       "sample": sampled, "run_predictions": demo,
                       "mfu": mfu_run, "profile": profiled,
-                      "multi_device": multi, "zstd": zst}))
+                      "multi_device": multi, "zstd": zst,
+                      "codecs": codecs}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

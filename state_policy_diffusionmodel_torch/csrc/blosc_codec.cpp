@@ -1,8 +1,8 @@
 // The blosc codecs of the port's host library that csrc/window_sampler.cpp
 // does not hold: the write side of the JAX package's zarr stores, and the
-// two blosc codecs it reads without writing. Built with g++ at first use
-// and loaded through ctypes (state_policy_diffusionmodel_torch/data/
-// native.py). Plain C interface, no third-party code.
+// two blosc codecs it reads. Built with g++ at first use and loaded
+// through ctypes (state_policy_diffusionmodel_torch/data/native.py). Plain
+// C interface, no third-party code.
 //
 // 1. A zstd frame encoder (RFC 8878): one frame that states its content
 //    size, blocks of at most 128 KiB, matches from hash chains over the
@@ -13,15 +13,18 @@
 // 2. An LZ4 block encoder (the raw block format, for lz4 and lz4hc) that
 //    keeps LZ4's end-of-block rules: the last 5 bytes are literals and the
 //    last match starts at least 12 bytes before the end.
-// 3. blosclz (FastLZ-derived, as c-blosc 1.x writes it) and raw snappy
-//    decoders, bounds-checked.
+// 3. blosclz (c-blosc 1.x's FastLZ level-2 format with its far-distance
+//    escape) and raw snappy (snappy's format_description.txt): encoders
+//    over the same hash chains, and bounds-checked decoders.
 // 4. blosc's byte shuffle and bitshuffle, forward: the exact inverses of
 //    data/replay_buffer.py's unshuffle and window_sampler.cpp's
 //    bitunshuffle.
 // 5. The blosc1 chunk writer: the 16-byte header, the block offsets, each
 //    block shuffled, split into typesize streams where c-blosc splits,
 //    each stream compressed, or stored as it is where that does not
-//    shrink it; the blocks spread over threads. A codec the library does
+//    shrink it; the blocks spread over threads, then laid out with
+//    c-blosc's own accounting of the room left, so a chunk is stored
+//    whole (memcpyed) where c-blosc's would be. A codec the library does
 //    not hold (zlib) comes in as a function pointer.
 
 #include <algorithm>
@@ -738,6 +741,137 @@ int lz4_depth(int clevel, bool hc) {
 }
 
 // ---------------------------------------------------------------------------
+// 3. blosclz and snappy encoders
+// ---------------------------------------------------------------------------
+
+// blosclz, as blosclz_decompress below (and c-blosc's) reads it. A literal
+// run is a control byte count - 1 (0-31) and its bytes. A match of len >= 3
+// bytes at distance d + 1 is a control byte (min(len - 2, 7) << 5 | d >> 8),
+// then where len - 2 >= 7 the rest of len - 9 in bytes of 255 and a last
+// byte, then d & 255; a d of 8191 or more is the escape (31 << 8 | 255)
+// followed by d - 8191 in two bytes, high first. The first control byte
+// carries the format's level, 1 << 5. c-blosc's decoder stops before it
+// copies a match that ends the stream, so the stream ends in literals.
+constexpr int64_t kBlosclzNear = 8191;                // c-blosc's MAX_DISTANCE
+constexpr int64_t kBlosclzWindow = 65535 + 8191 - 2;  // below MAX_FARDISTANCE
+
+void blosclz_block(const uint8_t* src, int64_t n, int depth, std::vector<uint8_t>& out) {
+  size_t ctrl = 0;  // the open literal run's control byte
+  int run = 0;      // its literals, 0 where none is open
+  auto literal = [&](int64_t from, int64_t to) {
+    for (; from < to; ++from) {
+      if (run == 0 || run == 32) {
+        ctrl = out.size();
+        out.push_back(0);
+        run = 0;
+      }
+      out.push_back(src[from]);
+      out[ctrl] = uint8_t(run++);
+    }
+  };
+  int64_t anchor = 0;
+  if (n >= 6) {
+    Matcher m(src, n, depth, kBlosclzWindow);
+    int64_t i = 1;
+    while (i + 5 <= n) {  // a match ends a byte before the stream at most
+      m.update(i);
+      uint32_t off = 0;
+      const int64_t len = m.find(i, n - 1, nullptr, 0, off);
+      const int64_t d = int64_t(off) - 1;
+      if (!len || (d >= kBlosclzNear && len < 6)) {  // a far match costs 4 bytes
+        ++i;
+        continue;
+      }
+      literal(anchor, i);
+      const int64_t l = len - 2;
+      out.push_back(uint8_t((std::min<int64_t>(l, 7) << 5) | (d >= kBlosclzNear ? 31 : d >> 8)));
+      if (l >= 7) {
+        int64_t rest = l - 7;
+        for (; rest >= 255; rest -= 255) out.push_back(255);
+        out.push_back(uint8_t(rest));
+      }
+      if (d >= kBlosclzNear) {
+        out.push_back(255);
+        out.push_back(uint8_t((d - kBlosclzNear) >> 8));
+        out.push_back(uint8_t(d - kBlosclzNear));
+      } else {
+        out.push_back(uint8_t(d));
+      }
+      run = 0;
+      i += len;
+      anchor = i;
+    }
+  }
+  literal(anchor, n);
+  if (!out.empty()) out[0] |= 1u << 5;
+}
+
+// snappy's raw format: the length as a varint, then literals (tag 0: the
+// length - 1 in the tag's top 6 bits below 60, else in the 1-2 bytes that
+// follow) and copies of 1-64 bytes (tag 1: 4-11 bytes at an 11-bit offset;
+// tag 2: a 16-bit offset). Offsets stay within 65535.
+void snappy_block(const uint8_t* src, int64_t n, int depth, std::vector<uint8_t>& out) {
+  for (uint64_t v = uint64_t(n);; v >>= 7) {
+    if (v < 128) {
+      out.push_back(uint8_t(v));
+      break;
+    }
+    out.push_back(uint8_t(v | 128));
+  }
+  auto literal = [&](int64_t from, int64_t to) {
+    while (from < to) {
+      const int64_t len = std::min<int64_t>(to - from, 65536), l = len - 1;
+      if (l < 60) {
+        out.push_back(uint8_t(l << 2));
+      } else if (l < 256) {
+        out.push_back(uint8_t(60 << 2));
+        out.push_back(uint8_t(l));
+      } else {
+        out.push_back(uint8_t(61 << 2));
+        out.push_back(uint8_t(l));
+        out.push_back(uint8_t(l >> 8));
+      }
+      out.insert(out.end(), src + from, src + from + len);
+      from += len;
+    }
+  };
+  auto copy = [&](uint32_t off, int64_t len) {  // 1 <= len <= 64
+    if (len >= 4 && len < 12 && off < 2048) {
+      out.push_back(uint8_t(1 | ((len - 4) << 2) | ((off >> 8) << 5)));
+      out.push_back(uint8_t(off));
+    } else {
+      out.push_back(uint8_t(2 | ((len - 1) << 2)));
+      out.push_back(uint8_t(off));
+      out.push_back(uint8_t(off >> 8));
+    }
+  };
+  int64_t anchor = 0;
+  if (n >= 4) {
+    Matcher m(src, n, depth, 65535);
+    int64_t i = 1;
+    while (i + 4 <= n) {
+      m.update(i);
+      uint32_t off = 0;
+      int64_t len = m.find(i, n, nullptr, 0, off);
+      if (!len) {
+        ++i;
+        continue;
+      }
+      literal(anchor, i);
+      i += len;
+      anchor = i;
+      for (; len >= 68; len -= 64) copy(off, 64);  // pieces of 4-64 bytes
+      if (len > 64) {
+        copy(off, 60);
+        len -= 60;
+      }
+      copy(off, len);
+    }
+  }
+  literal(anchor, n);
+}
+
+// ---------------------------------------------------------------------------
 // 4. shuffles
 // ---------------------------------------------------------------------------
 
@@ -776,20 +910,29 @@ void bitshuffle_block(const uint8_t* in, int64_t size, int64_t typesize, uint8_t
 // 5. the chunk writer
 // ---------------------------------------------------------------------------
 
-// the blosc1 compressor format codes written here (the header's flags >>
-// 5); lz4hc is written as lz4, blosclz (0) and snappy (2) are not written
-enum Codec { kLz4 = 1, kZlib = 3, kZstd = 4 };
+// the blosc1 compressor format codes (the header's flags >> 5); lz4hc is
+// written as lz4
+enum Codec { kBlosclz = 0, kLz4 = 1, kSnappy = 2, kZlib = 3, kZstd = 4 };
+
+// c-blosc 1.x's largest block (BLOSC_MAX_BLOCKSIZE)
+constexpr int64_t kMaxBlocksize = (INT32_MAX - 255 * 4) / 3;
 
 // c-blosc 1.x's block size for a chunk (compute_blocksize, with its
-// forward-compatible split rule)
-int64_t blosc_blocksize(int codec, int clevel, int64_t typesize, int64_t nbytes,
-                        bool split_codec) {
+// forward-compatible split rule): `forced` is the caller's blocksize as
+// the 32-bit int c-blosc takes (0: c-blosc's own), raised to 128 bytes
+// (a negative one too) and then taken through the split rule as c-blosc's
+// own is; lz4hc (hc), zlib and zstd are its high compression ratio
+// codecs, whose blocks are doubled
+int64_t blosc_blocksize(int codec, bool hc, int clevel, int64_t typesize, int64_t nbytes,
+                        int64_t forced, bool split_codec) {
   const int64_t l1 = 32 * 1024;
   if (nbytes < typesize) return 1;
   int64_t bs = nbytes;
-  if (nbytes >= l1) {
+  if (forced != 0) {
+    bs = std::min(std::max<int64_t>(forced, 128), kMaxBlocksize);
+  } else if (nbytes >= l1) {
     bs = l1;
-    const bool hcr = codec == kZlib || codec == kZstd;
+    const bool hcr = hc || codec == kZlib || codec == kZstd;
     if (hcr) bs *= 2;
     static const int factor[10] = {0, 0, 1, 2, 4, 4, 8, 8, 8, 8};
     if (clevel == 0)
@@ -808,6 +951,10 @@ int64_t blosc_blocksize(int codec, int clevel, int64_t typesize, int64_t nbytes,
   if (bs > typesize) bs = bs / typesize * typesize;
   return bs;
 }
+
+// the room c-blosc gives a codec for a stream of n bytes: snappy's bound
+// (snappy refuses any less), n for the others
+int64_t codec_room(int codec, int64_t n) { return codec == kSnappy ? 32 + n + n / 6 : n; }
 
 }  // namespace
 
@@ -842,6 +989,34 @@ int64_t lz4_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap, i
     std::vector<uint8_t> out;
     out.reserve(size_t(n + n / 255 + 16));
     lz4_block(src, n, lz4_depth(clevel, hc != 0), out);
+    if (int64_t(out.size()) > cap) return 0;
+    std::memcpy(dst, out.data(), out.size());
+    return int64_t(out.size());
+  } catch (const std::bad_alloc&) {
+    return -2;
+  }
+}
+
+// One blosclz stream (depth: the hash chain's, c-blosc's clevel 1-9 as
+// lz4's) or one raw snappy stream of src[0, n) into dst (cap bytes).
+// Returns its size, 0 where it does not fit, -2 where memory ran out.
+int64_t blosclz_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap, int clevel) {
+  try {
+    std::vector<uint8_t> out;
+    out.reserve(size_t(n + n / 32 + 16));
+    blosclz_block(src, n, lz4_depth(clevel, false), out);
+    if (int64_t(out.size()) > cap) return 0;
+    std::memcpy(dst, out.data(), out.size());
+    return int64_t(out.size());
+  } catch (const std::bad_alloc&) {
+    return -2;
+  }
+}
+int64_t snappy_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap, int clevel) {
+  try {
+    std::vector<uint8_t> out;
+    out.reserve(size_t(n + n / 32 + 16));
+    snappy_block(src, n, lz4_depth(clevel, false), out);
     if (int64_t(out.size()) > cap) return 0;
     std::memcpy(dst, out.data(), out.size());
     return int64_t(out.size());
@@ -972,22 +1147,22 @@ int64_t snappy_decompress(const uint8_t* src, int64_t src_size, uint8_t* dst, in
 
 // Write src[0, nbytes) as one blosc1 chunk into dst (dst_cap >= nbytes +
 // 16 bytes): typesize 1-255 (larger is written as 1, as c-blosc does),
-// clevel 0-9, shuffle 0 (none), 1 (bytes) or 2 (bits), codec 1 (lz4; hc
-// for lz4hc's search), 3 (zlib, through `external`) or 4 (zstd), at
-// c-blosc's block size. Returns the chunk's size, or -1 for bad arguments
-// (among them a codec not written here), -2 where an encoder failed, -4
-// where dst is too small.
+// clevel 0-9, shuffle 0 (none), 1 (bytes) or 2 (bits), codec 0 (blosclz),
+// 1 (lz4; hc for lz4hc's search), 2 (snappy), 3 (zlib, through
+// `external`) or 4 (zstd), at c-blosc's block size, or a forced one
+// (blocksize != 0). Returns the chunk's size, or -1 for bad arguments, -2
+// where an encoder failed, -4 where dst is too small.
 int64_t blosc_compress(const uint8_t* src, int64_t nbytes, int64_t typesize, int clevel,
-                       int doshuffle, int codec, int hc, uint8_t* dst, int64_t dst_cap,
-                       int n_threads, stream_encoder external) {
+                       int doshuffle, int codec, int hc, int32_t blocksize, uint8_t* dst,
+                       int64_t dst_cap, int n_threads, stream_encoder external) {
   if (nbytes < 0 || nbytes > INT32_MAX - 16 || typesize < 1 || clevel < 0 || clevel > 9 ||
-      doshuffle < 0 || doshuffle > 2 || (codec != kLz4 && codec != kZlib && codec != kZstd) ||
+      doshuffle < 0 || doshuffle > 2 || codec < kBlosclz || codec > kZstd ||
       (hc && codec != kLz4) || (codec == kZlib && !external))
     return -1;
   if (dst_cap < nbytes + 16) return -4;
   if (typesize > 255) typesize = 1;
   const bool split_codec = codec != kZstd && typesize <= 16;
-  const int64_t bs = blosc_blocksize(codec, clevel, typesize, nbytes, split_codec);
+  const int64_t bs = blosc_blocksize(codec, hc != 0, clevel, typesize, nbytes, blocksize, split_codec);
   const bool split = split_codec && bs / typesize >= 128;
   uint8_t flags = uint8_t((doshuffle == 1 ? 0x1 : 0) | (doshuffle == 2 ? 0x4 : 0) |
                           (split ? 0 : 0x10) | (codec << 5));
@@ -1005,47 +1180,53 @@ int64_t blosc_compress(const uint8_t* src, int64_t nbytes, int64_t typesize, int
   };
   if (clevel == 0 || nbytes < 128) return memcpyed();
   const int64_t nblocks = (nbytes + bs - 1) / bs;
-  std::vector<std::vector<uint8_t>> blocks(nblocks);
+  // each block shuffled and its streams compressed, over threads: stream s
+  // of a block at s * room in `packed`, its size in `sizes` (0 where it
+  // did not fit in the room c-blosc would give it with all the chunk left)
+  struct Block {
+    std::vector<uint8_t> shuffled, packed;
+    std::vector<int64_t> sizes;
+  };
+  std::vector<Block> blocks(nblocks);
   std::atomic<int> error(0);
   try {
     parallel_for(nblocks, n_threads, [&](int64_t b) {
       try {
         const int64_t size = std::min(bs, nbytes - b * bs);
         const uint8_t* in = src + b * bs;
-        std::vector<uint8_t> tmp(size);
+        Block& blk = blocks[b];
+        blk.shuffled.resize(size);
+        uint8_t* tmp = blk.shuffled.data();
         if (doshuffle == 1 && typesize > 1)
-          shuffle_block(in, size, typesize, tmp.data());
+          shuffle_block(in, size, typesize, tmp);
         else if (doshuffle == 2 && size >= typesize)
-          bitshuffle_block(in, size, typesize, tmp.data());
+          bitshuffle_block(in, size, typesize, tmp);
         else
-          std::memcpy(tmp.data(), in, size);
+          std::memcpy(tmp, in, size);
         const int64_t ns = split && size == bs ? typesize : 1, ss = size / ns;
-        std::vector<uint8_t>& out = blocks[b];
-        out.resize(size + 4 * ns);
-        int64_t at = 0;
+        const int64_t room = codec_room(codec, ss);
+        blk.packed.resize(size_t(ns * room));
+        blk.sizes.resize(ns);
         for (int64_t s = 0; s < ns; ++s) {
-          const uint8_t* stream = tmp.data() + s * ss;
-          uint8_t* body = out.data() + at + 4;
+          const uint8_t* stream = tmp + s * ss;
+          uint8_t* body = blk.packed.data() + s * room;
           int64_t c;
           if (codec == kZstd)
-            c = zstd_compress(stream, ss, body, ss - 1, clevel);
+            c = zstd_compress(stream, ss, body, room, clevel);
           else if (codec == kLz4)
-            c = lz4_compress(stream, ss, body, ss - 1, clevel, hc);
+            c = lz4_compress(stream, ss, body, room, clevel, hc);
+          else if (codec == kBlosclz)
+            c = blosclz_compress(stream, ss, body, room, clevel);
+          else if (codec == kSnappy)
+            c = snappy_compress(stream, ss, body, room, clevel);
           else
-            c = external(stream, ss, body, ss - 1, clevel);
+            c = external(stream, ss, body, room, clevel);
           if (c < 0) {
             error = 1;
             return;
           }
-          if (c == 0 || c >= ss) {  // does not shrink: stored as it is
-            std::memcpy(body, stream, ss);
-            c = ss;
-          }
-          const int32_t c32 = int32_t(c);
-          std::memcpy(out.data() + at, &c32, 4);
-          at += 4 + c;
+          blk.sizes[s] = c;
         }
-        out.resize(at);
       } catch (const std::bad_alloc&) {
         error = 1;
       }
@@ -1054,17 +1235,39 @@ int64_t blosc_compress(const uint8_t* src, int64_t nbytes, int64_t typesize, int
     return -2;
   }
   if (error) return -2;
-  int64_t total = 16 + 4 * nblocks;
-  for (const auto& blk : blocks) total += int64_t(blk.size());
-  if (total >= nbytes + 16) return memcpyed();
+  // the layout, with c-blosc's accounting: each stream may take what is
+  // left of nbytes + 16 bytes, snappy its whole bound or nothing; a stream
+  // that did not fit, or compressed to its raw size, is stored raw; where
+  // that does not fit either, the chunk is stored whole
+  const int64_t maxbytes = nbytes + 16;
   int64_t at = 16 + 4 * nblocks;
   for (int64_t b = 0; b < nblocks; ++b) {
+    const Block& blk = blocks[b];
+    const int64_t ns = int64_t(blk.sizes.size()), ss = int64_t(blk.shuffled.size()) / ns;
+    const int64_t full = codec_room(codec, ss);
     const int32_t start = int32_t(at);
     std::memcpy(dst + 16 + 4 * b, &start, 4);
-    std::memcpy(dst + at, blocks[b].data(), blocks[b].size());
-    at += int64_t(blocks[b].size());
+    for (int64_t s = 0; s < ns; ++s) {
+      at += 4;
+      int64_t room = full;
+      if (at + room > maxbytes) {
+        room = maxbytes - at;
+        if (room <= 0) return memcpyed();
+      }
+      int64_t c = blk.sizes[s];
+      const uint8_t* body = blk.packed.data() + s * full;
+      if (c == 0 || c > room || c == ss || (codec == kSnappy && room < full)) {
+        if (at + ss > maxbytes) return memcpyed();
+        c = ss;
+        body = blk.shuffled.data() + s * ss;
+      }
+      const int32_t c32 = int32_t(c);
+      std::memcpy(dst + at - 4, &c32, 4);
+      std::memcpy(dst + at, body, c);
+      at += c;
+    }
   }
-  return header(total);
+  return header(at);
 }
 
 }  // extern "C"

@@ -25,23 +25,28 @@ library's results equal them bit for bit.
   bitunshuffle(block, typesize) -> uint8 array, blosc's bitshuffle of one
       block of a multiple of 8 elements undone.
 
-From `blosc_codec.cpp` (the write side of blosc, and the two blosc codecs
-tensorstore writes that the reader above does not decode):
+From `blosc_codec.cpp` (the write side of blosc and of zarr's zstd, and
+the two blosc codecs the reader above does not decode):
 
-  blosc_compress(raw, typesize, cname, clevel, shuffle) -> bytes, one
-      blosc1 chunk at c-blosc's block size (zstd, lz4, lz4hc through the
-      library; zlib through Python's zlib, called by the library a stream).
-  check_blosc(cname, clevel, shuffle), the one place where a blosc
-      compressor this package cannot write is refused.
+  blosc_compress(raw, typesize, cname, clevel, shuffle, blocksize=0) ->
+      bytes, one blosc1 chunk at c-blosc's block size, or at a forced one
+      as c-blosc forces it (every cname tensorstore takes: blosclz, lz4,
+      lz4hc, snappy and zstd through the library, zlib through Python's
+      zlib, called by the library a stream); shuffle -1 is tensorstore's
+      auto: bitshuffle at typesize 1, byte shuffle otherwise. The chunk's
+      block size is c-blosc's for the same call, and so are its flags
+      wherever the encoders agree on whether a stream fits its room.
   zstd_compress(data, clevel) -> bytes, one zstd frame (hand-written
       encoder). lz4_compress(data, clevel, hc=False) -> bytes, one raw LZ4
-      block.
+      block. blosclz_compress(data, clevel), snappy_compress(data,
+      clevel) -> bytes, one stream each.
   shuffle(block, typesize), bitshuffle(block, typesize) -> uint8 array,
       blosc's shuffles of one block, forward.
   blosclz_decompress(data, size), snappy_decompress(data, size) -> bytes.
 
-An encoder that fails, or a codec the library does not write, raises;
-nothing is written in another codec's place.
+What a zarr store may ask of these is bounded in one table,
+`replay_buffer.ZARR_COMPRESSORS`. An encoder that fails, or arguments the
+library does not take, raise; nothing is written in another codec's place.
 """
 
 from __future__ import annotations
@@ -175,9 +180,9 @@ def bitunshuffle(block: np.ndarray, typesize: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 # blosc1's compressor format codes (a chunk header's flags >> 5); lz4hc is
-# written under lz4's code
+# written under lz4's code. Every cname tensorstore takes, written and read.
 BLOSC_CODES = {"blosclz": 0, "lz4": 1, "snappy": 2, "zlib": 3, "zstd": 4}
-BLOSC_WRITTEN = ("zstd", "lz4", "lz4hc", "zlib")
+BLOSC_CNAMES = ("blosclz", "lz4", "lz4hc", "snappy", "zlib", "zstd")
 
 _STREAM_ENCODER = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p,
                                    ctypes.c_int64, ctypes.c_void_p,
@@ -203,13 +208,16 @@ def codec_library() -> ctypes.CDLL:
     lib = build.library("blosc_codec")
     if not getattr(lib, "typed", False):
         i64, ptr, i32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
-        lib.blosc_compress.argtypes = [ptr, i64, i64, i32, i32, i32, i32, ptr,
-                                       i64, i32, _STREAM_ENCODER]
+        lib.blosc_compress.argtypes = [ptr, i64, i64, i32, i32, i32, i32, i32,
+                                       ptr, i64, i32, _STREAM_ENCODER]
         lib.blosc_compress.restype = i64
         lib.zstd_compress.argtypes = [ptr, i64, ptr, i64, i32]
         lib.zstd_compress.restype = i64
         lib.lz4_compress.argtypes = [ptr, i64, ptr, i64, i32, i32]
         lib.lz4_compress.restype = i64
+        for name in ("blosclz_compress", "snappy_compress"):
+            getattr(lib, name).argtypes = [ptr, i64, ptr, i64, i32]
+            getattr(lib, name).restype = i64
         for name in ("shuffle", "bitshuffle"):
             getattr(lib, name).argtypes = [ptr, i64, i64, ptr]
             getattr(lib, name).restype = None
@@ -224,44 +232,41 @@ _BLOSC_ERRORS = {-1: "bad arguments", -2: "an encoder failed",
                  -4: "the output is too small"}
 
 
-def check_blosc(cname, clevel, shuffle) -> None:
-    """Raise ValueError unless blosc_compress writes this compressor:
-    cname zstd, lz4, lz4hc or zlib (naming any other), clevel 0-9, shuffle
-    0 (none), 1 (bytes) or 2 (bits)."""
-    if cname not in BLOSC_WRITTEN:
-        raise ValueError(f"cannot write blosc {cname}: this package writes "
-                         f"blosc {list(BLOSC_WRITTEN)}")
-    if clevel not in range(10) or shuffle not in (0, 1, 2):
-        raise ValueError(f"blosc clevel 0-9 and shuffle 0, 1 or 2, got "
-                         f"clevel {clevel!r}, shuffle {shuffle!r}")
-
-
 def blosc_compress(raw, typesize: int, cname: str, clevel: int,
-                   shuffle: int) -> bytes:
-    """`raw` as one blosc1 chunk, at c-blosc's block size, that c-blosc
-    (tensorstore) reads back. Raises ValueError where `check_blosc` refuses
-    the compressor or an encoder fails."""
-    check_blosc(cname, clevel, shuffle)
+                   shuffle: int, blocksize: int = 0) -> bytes:
+    """`raw` as one blosc1 chunk that c-blosc (tensorstore) reads back, at
+    c-blosc's block size (blocksize 0) or a forced one, which c-blosc takes
+    as a 32-bit int (2**32 + 4096 forces 4096, 2**31 is negative and so
+    its floor, 128); shuffle 0 (none), 1 (bytes), 2 (bits) or -1
+    (tensorstore's auto: bits at typesize 1, bytes otherwise). Raises
+    ValueError for a cname outside BLOSC_CNAMES, arguments the library
+    does not take, or an encoder that fails."""
+    if cname not in BLOSC_CNAMES:
+        raise ValueError(f"blosc cname {cname!r}: this package writes "
+                         f"{list(BLOSC_CNAMES)}")
+    if shuffle == -1:
+        shuffle = 2 if typesize == 1 else 1
+    forced = (int(blocksize) + 2 ** 31) % 2 ** 32 - 2 ** 31
     src = np.frombuffer(raw, np.uint8)
     out = np.empty(src.size + 16, np.uint8)
     n = codec_library().blosc_compress(
-        src.ctypes.data, src.size, int(typesize), clevel, shuffle,
+        src.ctypes.data, src.size, int(typesize), int(clevel), int(shuffle),
         BLOSC_CODES["lz4" if cname == "lz4hc" else cname],
-        int(cname == "lz4hc"), out.ctypes.data, out.size, N_THREADS,
-        _zlib_stream)
+        int(cname == "lz4hc"), forced, out.ctypes.data, out.size,
+        N_THREADS, _zlib_stream)
     if n < 0:
         raise ValueError(f"blosc {cname} (clevel {clevel}, shuffle "
-                         f"{shuffle}) of {src.size} bytes failed: "
-                         f"{_BLOSC_ERRORS[n]}")
+                         f"{shuffle}, blocksize {blocksize}) of {src.size} "
+                         f"bytes failed: {_BLOSC_ERRORS[n]}")
     return out[:n].tobytes()
 
 
 def _encoded(fn, data: bytes, what: str, *args) -> bytes:
     src = np.frombuffer(data, np.uint8)
-    cap = src.size + src.size // 64 + 64   # every encoder's worst case
+    cap = src.size + src.size // 6 + 64   # every encoder's worst case
     out = np.empty(cap, np.uint8)
     n = fn(src.ctypes.data, src.size, out.ctypes.data, cap, *args)
-    if n <= 0:
+    if n < 0 or (n == 0 and src.size):
         raise ValueError(f"{what} of {src.size} bytes failed ({n})")
     return out[:n].tobytes()
 
@@ -276,6 +281,20 @@ def lz4_compress(data: bytes, clevel: int = 5, hc: bool = False) -> bytes:
     """One raw LZ4 block holding `data` (lz4hc's deeper search with hc)."""
     return _encoded(codec_library().lz4_compress, data, "lz4", int(clevel),
                     int(hc))
+
+
+def blosclz_compress(data: bytes, clevel: int = 5) -> bytes:
+    """One blosclz stream holding `data` (the hash chain's depth from
+    blosc's clevel 1-9, as lz4's); ends in literals, as c-blosc's decoder
+    needs."""
+    return _encoded(codec_library().blosclz_compress, data, "blosclz",
+                    int(clevel))
+
+
+def snappy_compress(data: bytes, clevel: int = 5) -> bytes:
+    """One raw snappy stream holding `data` (offsets within 65535)."""
+    return _encoded(codec_library().snappy_compress, data, "snappy",
+                    int(clevel))
 
 
 def _shuffled(name: str, block, typesize: int) -> np.ndarray:

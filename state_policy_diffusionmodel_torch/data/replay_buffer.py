@@ -9,35 +9,41 @@ same zarr v2 group, `data/<key>`, `meta/episode_ends`, `meta/<key>` and a
 a `.zip` of such a directory is read through `zipfile`.
 
 The JAX package writes through tensorstore with blosc by default: zstd-5
-with bitshuffle (its `disk` preset) or lz4 (`default`). This module writes
-the same stores (`COMPRESSOR_PRESETS`, `_resolve_compressor`, the JAX
-package's): blosc1 chunks written by the port's host library
-(`data/native.py::blosc_compress`: hand-written zstd and LZ4 encoders,
-forward shuffle and bitshuffle, the blocks spread over threads; zlib
-streams through Python's `zlib`), zstd, lz4, lz4hc and zlib under blosc,
-which tensorstore reads back bit for bit. It also writes `zlib`
-(`{"id": "zlib", "level": L}`) and uncompressed arrays. Writing blosc
-blosclz or snappy raises, as does an encoder that fails: nothing is
-written in another codec's place.
+with bitshuffle (its `disk` preset) or lz4 (`default`), and passes any
+other compressor dict of its caller to tensorstore's zarr v2 driver. This
+module writes and reads the same compressors, each as tensorstore
+normalizes and bounds it (`ZARR_COMPRESSORS`, the one table of them; a
+spec outside it is refused before anything is written):
 
-It reads blosc chunks itself (`_blosc_decode`): the chunk header and
-block offsets, memcpyed chunks, split streams, zlib through `zlib`, zstd,
-lz4, lz4hc, blosclz and snappy through the host library (a hand-written
-zstd frame decoder, LZ4 block, blosclz and snappy decoders), byte shuffle
-undone in numpy and bitshuffle in the host library, one chunk at a time;
-one path on every machine. It also reads arrays without a compressor or
-with `zlib`.
+- blosc, every cname (blosclz, lz4, lz4hc, snappy, zlib, zstd), shuffle
+  -1 (auto) to 2 and any blocksize: blosc1 chunks written by the port's
+  host library (`data/native.py::blosc_compress`: hand-written encoders,
+  forward shuffle and bitshuffle, c-blosc's block size and layout) and
+  read here (`_blosc_decode`: the chunk header and block offsets,
+  memcpyed chunks, split streams, zlib through `zlib`, the other codecs
+  through the host library's decoders, byte shuffle undone in numpy and
+  bitshuffle in the host library);
+- zlib and gzip through Python's `zlib` (any gzip stream is read, one of
+  several members too); bz2 through Python's `bz2`, imported where it is
+  used (without it a bz2 array raises ImportError naming bz2); zstd, one
+  frame a chunk, through the host library's encoder and decoder;
+- no compressor.
+
+Nothing is written in another codec's place. Arrays are written in C
+order; arrays in F order are read and appended to.
 
 `ZarrReplayBuffer` is the live on-disk store (the JAX package's, there
 through tensorstore's resizable zarr driver): episodes append straight to
 disk as a resize of each array's `.zarray` shape and a write of the chunks
 the episode touches (a chunk that straddles two episodes is read, filled
-and rewritten whole), and reads load only the chunks they touch. Its
-compressor is the JAX store's.
+and rewritten whole), in the order and with the compressor its `.zarray`
+states, and reads load only the chunks they touch. Its compressor is the
+JAX store's.
 """
 
 from __future__ import annotations
 
+import gzip
 import itertools
 import json
 import math
@@ -153,7 +159,7 @@ class ReplayBuffer:
 
 
 # ---------------------------------------------------------------------------
-# zarr v2 arrays: .zarray JSON + one file per chunk, C order
+# zarr v2 arrays: .zarray JSON + one file per chunk
 # ---------------------------------------------------------------------------
 
 def _resolve_compressor(compressors, key: str) -> Optional[dict]:
@@ -173,26 +179,85 @@ def _resolve_compressor(compressors, key: str) -> Optional[dict]:
                      f"per-key dict, got {compressors!r}")
 
 
-def _zarray_compressor(compressor: Optional[dict]) -> Optional[dict]:
-    """The compressor as a `.zarray` states it, and checked before anything
-    is written: blosc as tensorstore writes it (blocksize 0: c-blosc's
-    own, the only one written), zlib with its level, or None."""
+# Every zarr v2 compressor this module writes and reads, as tensorstore
+# (the JAX package's writer) normalizes and bounds it: id -> member ->
+# (its default, the values taken). A member left out takes its default;
+# any other id, member or value is refused, as tensorstore refuses it.
+ZARR_COMPRESSORS = {
+    "blosc": {"blocksize": (0, range(0, 2 ** 64)),
+              "clevel": (5, range(0, 10)),
+              "cname": ("lz4", native.BLOSC_CNAMES),
+              "shuffle": (-1, range(-1, 3))},
+    "bz2": {"level": (1, range(1, 10))},
+    "gzip": {"level": (1, range(0, 10))},
+    "zlib": {"level": (1, range(0, 10))},
+    "zstd": {"level": (1, range(-131072, 23))},
+}
+
+
+def _zarray_compressor(compressor: Optional[dict],
+                       where: str = "a zarr array") -> Optional[dict]:
+    """The compressor as a `.zarray` states it, each member present, as
+    tensorstore writes it for the same dict; ValueError, naming what is
+    refused, for a spec outside ZARR_COMPRESSORS (and ImportError for bz2
+    where Python has no bz2). Called before anything is written and on
+    every array read."""
     if compressor is None:
         return None
-    cid = compressor.get("id")
-    if cid == "zlib":
-        return {"id": "zlib", "level": int(compressor.get("level", 1))}
-    if cid != "blosc":
-        raise ValueError(f"cannot write zarr compressor {compressor!r}: this "
-                         "package writes blosc, zlib and uncompressed arrays")
-    if compressor.get("blocksize", 0) != 0:
-        raise ValueError(f"this package writes blosc at c-blosc's own block "
-                         f"size (blocksize 0), got {compressor!r}")
-    spec = {"blocksize": 0, "clevel": int(compressor.get("clevel", 5)),
-            "cname": compressor.get("cname", "lz4"), "id": "blosc",
-            "shuffle": int(compressor.get("shuffle", 1))}
-    native.check_blosc(spec["cname"], spec["clevel"], spec["shuffle"])
-    return spec
+    cid = compressor.get("id") if isinstance(compressor, dict) else None
+    if not isinstance(cid, str) or cid not in ZARR_COMPRESSORS:
+        raise ValueError(f"{where}: zarr compressor {compressor!r} is not "
+                         f"one of the ids {sorted(ZARR_COMPRESSORS)}")
+    members = ZARR_COMPRESSORS[cid]
+    extra = sorted(set(compressor) - set(members) - {"id"})
+    if extra:
+        raise ValueError(f"{where}: a zarr {cid} compressor has the members "
+                         f"{sorted(members)}, not {extra}: {compressor!r}")
+    spec = {"id": cid}
+    for name, (default, allowed) in members.items():
+        value = compressor.get(name, default)
+        if isinstance(allowed, range):      # integers, 3.0 as 3; no bools
+            integral = not isinstance(value, bool) and (
+                isinstance(value, int)
+                or isinstance(value, float) and value.is_integer())
+            value = int(value) if integral else None
+        if value not in allowed:
+            taken = (f"{allowed.start}..{allowed.stop - 1}"
+                     if isinstance(allowed, range) else list(allowed))
+            raise ValueError(f"{where}: zarr {cid} {name} "
+                             f"{compressor.get(name)!r} is not in {taken}")
+        spec[name] = value
+    if cid == "bz2":
+        _bz2()
+    return dict(sorted(spec.items()))
+
+
+def _bz2():
+    """Python's bz2 module; ImportError naming bz2 where the interpreter
+    was built without it (no other codec is used in its place)."""
+    try:
+        import bz2
+    except ImportError as e:
+        raise ImportError(f"zarr bz2 arrays need Python's bz2 module, which "
+                          f"this interpreter lacks: {e}") from e
+    return bz2
+
+
+def _zstd_effort(level: int) -> int:
+    """The host zstd encoder's search effort (blosc's clevel 1-9) for a
+    zarr zstd level: the inverse of c-blosc's own map from its clevel c to
+    zstd's level (2c - 1 up to 7, then 20 and 22), the largest effort
+    whose zstd level is at most the one asked. Level 0 is zstd's default,
+    3; levels 2 and below (the negative ones among them) take the fastest
+    search, a greedy one of 4 candidates."""
+    level = 3 if level == 0 else level
+    if level >= 22:
+        return 9
+    if level >= 20:
+        return 8
+    if level >= 13:
+        return 7
+    return max(1, (level + 1) // 2)
 
 
 def _encode(raw: bytes, compressor: Optional[dict], typesize: int) -> bytes:
@@ -200,31 +265,23 @@ def _encode(raw: bytes, compressor: Optional[dict], typesize: int) -> bytes:
     stores them; `typesize` is the dtype's item size."""
     if compressor is None:
         return raw
-    if compressor["id"] == "zlib":
+    cid = compressor["id"]
+    if cid == "zlib":
         return zlib.compress(raw, compressor["level"])
+    if cid == "gzip":
+        enc = zlib.compressobj(compressor["level"], zlib.DEFLATED, 31)
+        return enc.compress(raw) + enc.flush()
+    if cid == "bz2":
+        return _bz2().compress(raw, compressor["level"])
+    if cid == "zstd":
+        return native.zstd_compress(raw, _zstd_effort(compressor["level"]))
     return native.blosc_compress(raw, typesize, compressor["cname"],
-                                 compressor["clevel"], compressor["shuffle"])
+                                 compressor["clevel"], compressor["shuffle"],
+                                 compressor["blocksize"])
 
 
 # blosc1's compressor format codes (the header's flags >> 5) -> codec
 _BLOSC_CODECS = {code: name for name, code in native.BLOSC_CODES.items()}
-_BLOSC_READ = set(native.BLOSC_CODES) | {"lz4hc"}
-
-
-def _check_codec(compressor: Optional[dict], where: str) -> None:
-    """Raise, naming what is missing, unless this machine reads the codec."""
-    cid = None if compressor is None else compressor.get("id")
-    if cid in (None, "zlib"):
-        return
-    if cid == "blosc":
-        cname = compressor.get("cname")
-        if cname not in _BLOSC_READ:
-            raise ValueError(f"{where} is compressed with blosc {cname}: "
-                             f"this package reads blosc "
-                             f"{sorted(_BLOSC_READ)} only")
-        return
-    raise ValueError(f"{where} is compressed with {cid}: this package reads "
-                     "uncompressed, zlib and blosc zarr arrays only")
 
 
 def _blosc_stream(data: bytes, codec: str, size: int) -> bytes:
@@ -336,11 +393,19 @@ def _blosc_streams(blob: bytes, lo: int, hi: int, n: int, bsize: int):
     return parts if pos == hi else None
 
 
-def _decode(blob: bytes, compressor: Optional[dict]) -> bytes:
-    if compressor is None:
+def _decode(blob: bytes, compressor: Optional[dict], nbytes: int) -> bytes:
+    """One chunk's `nbytes` raw bytes from what its compressor stored."""
+    cid = None if compressor is None else compressor["id"]
+    if cid is None:
         return blob
-    if compressor.get("id") == "blosc":
+    if cid == "blosc":
         return _blosc_decode(blob)
+    if cid == "zstd":       # tensorstore's frames state no content size
+        return native.zstd_decompress(blob, nbytes)
+    if cid == "gzip":
+        return gzip.decompress(blob)
+    if cid == "bz2":
+        return _bz2().decompress(blob)
     return zlib.decompress(blob)
 
 
@@ -386,22 +451,26 @@ def _write_array(path: str, arr: np.ndarray, chunk_len: int,
 def save_zarr(buffer: ReplayBuffer, path: str, chunk_length: int = -1,
               compressors=None) -> None:
     """The buffer as a zarr v2 group at `path` (data/, meta/episode_ends,
-    meta/<key>), in the JAX package's chunking."""
-    _write_group_meta(path)
+    meta/<key>), in the JAX package's chunking. Every array's compressor is
+    checked before anything is written."""
+    arrays = []
     for k, v in buffer.data.items():
         v = np.asarray(v)
         t_chunk = chunk_length if chunk_length > 0 else _optimal_chunk_length(
             v.shape, v.dtype)
-        _write_array(os.path.join(path, "data", k), v, t_chunk,
-                     _resolve_compressor(compressors, k))
+        arrays.append((f"data/{k}", v, t_chunk, k))
     ends = np.asarray(buffer.episode_ends).astype(np.int64)
-    _write_array(os.path.join(path, "meta", "episode_ends"), ends,
-                 max(1, len(ends)),
-                 _resolve_compressor(compressors, "episode_ends"))
+    arrays.append(("meta/episode_ends", ends, max(1, len(ends)),
+                   "episode_ends"))
     for k, v in buffer.meta.items():
         v = np.asarray(v)
-        _write_array(os.path.join(path, "meta", k), v, max(1, v.shape[0]),
-                     _resolve_compressor(compressors, k))
+        arrays.append((f"meta/{k}", v, max(1, v.shape[0]), k))
+    specs = [_zarray_compressor(_resolve_compressor(compressors, key), name)
+             for name, _, _, key in arrays]
+    _write_group_meta(path)
+    for (name, v, chunk_len, _), spec in zip(arrays, specs):
+        _write_array(os.path.join(path, *name.split("/")), v, chunk_len,
+                     spec)
 
 
 class _DirStore:
@@ -444,18 +513,18 @@ def _array_meta(store, key: str) -> dict:
     if raw is None:
         raise FileNotFoundError(f"no zarr array at {key}")
     meta = json.loads(raw)
-    if meta.get("zarr_format") != 2 or meta.get("order", "C") != "C" \
-            or meta.get("filters"):
-        raise ValueError(f"{key}: only C-order zarr v2 arrays without "
+    if meta.get("zarr_format") != 2 \
+            or meta.get("order", "C") not in ("C", "F") or meta.get("filters"):
+        raise ValueError(f"{key}: only C- or F-order zarr v2 arrays without "
                          f"filters are read, got {meta}")
-    _check_codec(meta["compressor"], key)
+    _zarray_compressor(meta["compressor"], key)
     return meta
 
 
 def _read_array(store, key: str, rows: Optional[tuple] = None,
                 meta: Optional[dict] = None) -> np.ndarray:
     """The array at `key`, or its rows [start, stop) along axis 0 (only the
-    chunks holding them are read)."""
+    chunks holding them are read); each chunk in the array's order."""
     meta = meta or _array_meta(store, key)
     shape, chunks = tuple(meta["shape"]), tuple(meta["chunks"])
     dtype = np.dtype(meta["dtype"])
@@ -483,8 +552,10 @@ def _read_array(store, key: str, rows: Optional[tuple] = None,
         if blob is None:            # a chunk never written holds fill_value
             out[dst] = fill
             continue
-        block = np.frombuffer(_decode(blob, meta["compressor"]),
-                              dtype).reshape(chunks)
+        raw = _decode(blob, meta["compressor"],
+                      math.prod(chunks) * dtype.itemsize)
+        block = np.frombuffer(raw, dtype).reshape(
+            chunks, order=meta.get("order", "C"))
         out[dst] = block[src]
     return out
 
@@ -613,22 +684,31 @@ class ZarrReplayBuffer(ReplayBuffer):
             raise ValueError(f"episode keys {set(episode)} != buffer keys "
                              f"{set(self._keys)}")
         start = self.n_steps
+        # every array's compressor and row shape checked before a write
+        new = {k: _zarray_compressor(_resolve_compressor(self._compressors,
+                                                         k), f"data/{k}")
+               for k in episode if k not in self._keys}
+        for k, v in episode.items():
+            if k in new:
+                continue
+            meta = _array_meta(self._dir, f"data/{k}")
+            if tuple(meta["chunks"][1:]) != np.shape(v)[1:] \
+                    or np.dtype(meta["dtype"]) != np.asarray(v).dtype:
+                raise ValueError(f"data/{k}: episode rows {np.shape(v)[1:]} "
+                                 f"{np.asarray(v).dtype} do not match the "
+                                 f"store's {meta['chunks'][1:]} "
+                                 f"{meta['dtype']}")
         for k, v in episode.items():
             v = np.ascontiguousarray(v)
-            if k not in self._keys:
+            if k in new:
                 chunk = (self._chunk_length if self._chunk_length > 0 else
                          _optimal_chunk_length(v.shape, v.dtype))
-                _write_array(self._array_dir(k), v[:0], chunk,
-                             _resolve_compressor(self._compressors, k))
+                _write_array(self._array_dir(k), v[:0], chunk, new[k])
                 self._keys.append(k)
             meta = self._set_shape(k, start + t)
-            comp = _zarray_compressor(meta["compressor"])
+            comp = _zarray_compressor(meta["compressor"], f"data/{k}")
+            order = meta.get("order", "C")
             c = meta["chunks"][0]
-            if tuple(meta["chunks"][1:]) != v.shape[1:] \
-                    or np.dtype(meta["dtype"]) != v.dtype:
-                raise ValueError(f"data/{k}: episode rows {v.shape[1:]} "
-                                 f"{v.dtype} do not match the store's "
-                                 f"{meta['chunks'][1:]} {meta['dtype']}")
             sep = meta.get("dimension_separator", ".")
             tail = f"{sep}0" * (v.ndim - 1)
             for i in range(start // c, -(-(start + t) // c)):
@@ -641,7 +721,7 @@ class ZarrReplayBuffer(ReplayBuffer):
                 block[a - lo:b - lo] = v[a - start:b - start]
                 name = os.path.join(self._array_dir(k), f"{i}{tail}")
                 os.makedirs(os.path.dirname(name), exist_ok=True)
-                blob = _encode(block.tobytes(), comp, v.itemsize)
+                blob = _encode(block.tobytes(order=order), comp, v.itemsize)
                 with open(name, "wb") as f:
                     f.write(blob)
         self.episode_ends = np.append(self.episode_ends, start + t)

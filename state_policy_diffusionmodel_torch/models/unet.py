@@ -161,15 +161,19 @@ MODEL_REGISTRY = {
 }
 
 
+def model_entry(name: str):
+    """(class, keyword arguments, reference width) of a model name; a name
+    the registry does not hold takes UNetSimple's, as the JAX package's
+    `build_model` does."""
+    return MODEL_REGISTRY.get(name, MODEL_REGISTRY["UNet"])
+
+
 def build_model(name: str, cond_dim: Optional[int], out_channels: int = 1,
                 time_dim: int = 256, width: Optional[int] = None):
     """Model selection by the reference's CLI names. width: base channel
     count (None = the net's reference plan: 64 for the FiLM nets, 16 for
-    UNetSimple). The JAX `build_model` falls back to UNetSimple for a name
-    it does not know; this one raises ValueError for it."""
-    if name not in MODEL_REGISTRY:
-        raise ValueError(
-            f"unknown model {name!r}; have {sorted(MODEL_REGISTRY)}")
-    cls, kw, default_width = MODEL_REGISTRY[name]
+    UNetSimple). A name it does not know builds UNetSimple, as the JAX
+    `build_model` does."""
+    cls, kw, default_width = model_entry(name)
     return cls(cond_dim, out_channels=out_channels, time_dim=time_dim,
                width=default_width if width is None else width, **kw)

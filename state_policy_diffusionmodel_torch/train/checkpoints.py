@@ -26,7 +26,7 @@ import numpy as np
 from .. import resolve_device
 from ..data.dataset import load_stats
 from ..diffusion.policy import ENCODERS, DiffusionPolicy, PolicyConfig
-from ..models import MODEL_REGISTRY
+from ..models import model_entry
 from ..params_from_jax import (
     load_into, load_npz, params_from_jax, params_to_jax,
 )
@@ -255,9 +255,7 @@ def load_run(run_dir: str, device="cuda", ema: bool = False,
             f"no checkpoint under {run_dir}/{subdir}"
             + ("" if epoch is None else f" for epoch {epoch}"))
     params = params_from_jax(load_npz(os.path.join(ckpt, "params.npz")), dev)
-    if cfg.model not in MODEL_REGISTRY:
-        raise ValueError(f"unknown model {cfg.model!r}")
-    cls, kw, default_width = MODEL_REGISTRY[cfg.model]
+    cls, kw, default_width = model_entry(cfg.model)
     unet, enc = params["unet"], params.get("encoder")
     want = (cls.__name__, default_width if cfg.model_width is None
             else cfg.model_width, cfg.time_dim, kw.get("with_attention"),

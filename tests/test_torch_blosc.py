@@ -17,8 +17,9 @@ the JAX package's tensorstore, on CPU.
   another size, and bytes mutated at random (an error or a wrong output,
   never a read or write past a buffer).
 - Without the zstandard package a zstd store is read all the same (the
-  port's own zstd decoder); a codec the port does not read (gzip) raises
-  naming it; an lz4 store is read through the port's own decoder.
+  port's own zstd decoder); a gzip store is read; a compressor neither
+  package reads (id lz4, in a hand-written `.zarray`) raises naming it;
+  an lz4 store is read through the port's own decoder.
 """
 
 import builtins
@@ -174,8 +175,18 @@ def test_missing_codecs_are_named(tmp_path, monkeypatch):
             for k in keys})
     jrb.save_zarr(buf, str(tmp_path / "gzip.zarr"), compressors={
         k: {"id": "gzip", "level": 5} for k in keys})
-    with pytest.raises(ValueError, match="gzip"):
+    # gzip is read (since the port reads every compressor tensorstore
+    # takes); a compressor tensorstore does not register, in a .zarray
+    # written by hand, is refused by both, named
+    got = trb.load_zarr(str(tmp_path / "gzip.zarr"))
+    for k, v in buf.data.items():
+        assert np.array_equal(got.data[k], v), k
+    zarray = tmp_path / "gzip.zarr" / "data" / "img" / ".zarray"
+    zarray.write_text(zarray.read_text().replace('"gzip"', '"lz4"'))
+    with pytest.raises(ValueError, match="lz4"):
         trb.load_zarr(str(tmp_path / "gzip.zarr"))
+    with pytest.raises(ValueError, match="lz4"):
+        jrb.load_zarr(str(tmp_path / "gzip.zarr"))
     # zstd needs nothing but the port's host library either
     _block_zstandard(monkeypatch)
     got = trb.load_zarr(str(tmp_path / "zstd.zarr"))
@@ -184,11 +195,12 @@ def test_missing_codecs_are_named(tmp_path, monkeypatch):
     # lz4 needs nothing but the port's host library
     got = trb.load_zarr(str(tmp_path / "lz4.zarr"))
     assert np.array_equal(got.data["position"], buf.data["position"])
-    # zlib and uncompressed stores name nothing
-    trb._check_codec({"id": "zlib", "level": 1}, "x")
-    trb._check_codec(None, "x")
-    with pytest.raises(ValueError, match="gzip"):
-        trb._check_codec({"id": "gzip"}, "x")
+    # zlib, gzip and uncompressed stores name nothing
+    trb._zarray_compressor({"id": "zlib", "level": 1}, "x")
+    trb._zarray_compressor({"id": "gzip"}, "x")
+    trb._zarray_compressor(None, "x")
+    with pytest.raises(ValueError, match="lz4"):
+        trb._zarray_compressor({"id": "lz4"}, "x")
 
 
 def test_shared_store_windows_read_through_the_dataset():

@@ -19,8 +19,8 @@ against the JAX package's tensorstore, on CPU.
 - On 12 `img` chunks of the committed shared store the port's zstd-5 with
   bitshuffle takes no more bytes than zlib level 1 (the ratio to c-blosc's
   bytes on disk is printed).
-- Nothing falls back: blosclz and snappy raise naming the codec, and a
-  library that does not build or an encoder that fails raises.
+- Nothing falls back: a spec both packages refuse raises naming it, and
+  a library that does not build or an encoder that fails raises.
 """
 
 import json
@@ -282,16 +282,20 @@ def test_shared_img_chunks_take_no_more_than_zlib_1():
 
 def test_nothing_falls_back(tmp_path, monkeypatch):
     buf = _buffer(500, seed=1)
-    for cname in ("blosclz", "snappy"):
-        with pytest.raises(ValueError, match=cname):
-            buf.save_to_path(str(tmp_path / f"{cname}.zarr"), compressors={
-                "img": {"id": "blosc", "cname": cname, "clevel": 5,
-                        "shuffle": 1}})
-        with pytest.raises(ValueError, match=cname):
-            native.blosc_compress(b"\0" * 1000, 4, cname, 5, 1)
-    with pytest.raises(ValueError, match="gzip"):
-        buf.save_to_path(str(tmp_path / "gzip.zarr"),
-                         compressors={"img": {"id": "gzip", "level": 5}})
+    # blosclz and snappy are written now; a spec both packages refuse
+    # raises naming it, before any chunk is written
+    for bad, named in (({"id": "blosc", "cname": "ndlz", "clevel": 5,
+                         "shuffle": 1}, "ndlz"),
+                       ({"id": "lz4"}, "lz4")):
+        path = str(tmp_path / f"{named}.zarr")
+        with pytest.raises(ValueError, match=named):
+            buf.save_to_path(path, compressors={"img": bad})
+        assert not os.path.exists(path)
+        with pytest.raises(ValueError):
+            jrb.save_zarr(buf, str(tmp_path / f"jax_{named}.zarr"),
+                          compressors={"img": bad})
+    with pytest.raises(ValueError, match="ndlz"):
+        native.blosc_compress(b"\0" * 1000, 4, "ndlz", 5, 1)
 
     @native._STREAM_ENCODER
     def failing(src, n, dst, cap, clevel):
@@ -313,15 +317,18 @@ def test_nothing_falls_back(tmp_path, monkeypatch):
     assert not os.path.exists(os.path.join(path, "data", "img", "0.0.0.0"))
 
 
-@pytest.mark.parametrize("bad", [{"blocksize": 4096}, {"clevel": 10},
+@pytest.mark.parametrize("bad", [{"blocksize": -1}, {"clevel": 10},
                                  {"shuffle": 3}])
 def test_unwritten_blosc_settings_raise_before_writing(tmp_path, bad):
-    """A blocksize other than 0 (c-blosc's own), a clevel outside 0-9 or a
-    shuffle outside 0-2 is refused before any chunk is written."""
+    """A negative blocksize, a clevel outside 0-9 or a shuffle outside
+    -1..2 (each refused by tensorstore too) is refused before any chunk is
+    written."""
     buf = _buffer(500, seed=1)
     path = str(tmp_path / "bad.zarr")
+    comps = {"img": {"id": "blosc", "cname": "zstd", "clevel": 5,
+                     "shuffle": 2, **bad}}
     with pytest.raises(ValueError, match=next(iter(bad))):
-        buf.save_to_path(path, compressors={"img": {
-            "id": "blosc", "cname": "zstd", "clevel": 5, "shuffle": 2,
-            **bad}})
+        buf.save_to_path(path, compressors=comps)
     assert not os.path.exists(os.path.join(path, "data", "img", "0.0.0.0"))
+    with pytest.raises(ValueError):
+        jrb.save_zarr(buf, str(tmp_path / "jax.zarr"), compressors=comps)

@@ -300,7 +300,7 @@ def test_port_refuses_a_blosc_store(monkeypatch):
         got = tr._read_array(store, f"data/{k}", (0, int(ends[-1])))
         np.testing.assert_array_equal(got, data[k])
     with pytest.raises(ValueError, match="ndlz"):
-        tr._check_codec({"id": "blosc", "cname": "ndlz"}, "x")
+        tr._zarray_compressor({"id": "blosc", "cname": "ndlz"}, "x")
 
 
 def test_replay_buffer_episode_api():

@@ -286,8 +286,37 @@ def test_unet_simple_width8_matches_jax(with_cond):
                            time_dim=32, width=8)
     load_into(built, params)
     assert tu.build_model("UNet", cond_dim).width == 16
-    with pytest.raises(ValueError, match="unknown model"):
-        tu.build_model("UNet_Unknown", cond_dim)
+    # a name neither registry holds builds UNetSimple at width 16 in both
+    unknown = tu.build_model("UNet_Unknown", cond_dim)
+    assert isinstance(unknown, tu.UNetSimple) and unknown.width == 16
+    jm_unknown = ju.build_model("UNet_Unknown")
+    assert isinstance(jm_unknown, ju.UNetSimple) and jm_unknown.width == 16
+
+
+@pytest.mark.parametrize("with_cond", [True, False])
+def test_unknown_model_name_builds_the_same_net_in_both(with_cond):
+    """The fallback nets of both packages' build_model, given the same
+    width-8 params, agree at EPS_ATOL."""
+    rng = np.random.default_rng(11)
+    B, cond_dim = 3, 40
+    x = _np(rng, (B, 31, 5, 1))
+    t = np.array([3, 400, 998], np.int32)
+    cond = _np(rng, (B, cond_dim)) if with_cond else None
+    jm = ju.build_model("UNet_Unknown", time_dim=32, width=8)
+    args = (jnp.asarray(x), jnp.asarray(t))
+    targs = (torch.from_numpy(x), torch.from_numpy(t))
+    if with_cond:
+        args += (jnp.asarray(cond),)
+        targs += (torch.from_numpy(cond),)
+    params = _draw(rng, jax.eval_shape(jm.init, jax.random.key(0),
+                                       *args)["params"])
+    want = np.asarray(jax.jit(jm.apply)({"params": params}, *args))
+    tm = load_into(tu.build_model("UNet_Unknown", cond_dim if with_cond
+                                  else None, time_dim=32, width=8), params)
+    assert isinstance(tm, tu.UNetSimple)
+    with torch.no_grad():
+        got = tm(*targs).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=EPS_ATOL)
 
 
 def test_unet_simple_ddim_steps_match_jax():

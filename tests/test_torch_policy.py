@@ -327,7 +327,8 @@ def test_ring_policy_r5blend_full_width_matches_jax():
 # ---------------------------------------------------------------------------
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tensorstore", "yaml",
-              "orbax", "zstandard", "state_policy_diffusionmodel_tpu")
+              "orbax", "zstandard", "zarr", "numcodecs",
+              "state_policy_diffusionmodel_tpu")
 PORT_DIR = REPO / "state_policy_diffusionmodel_torch"
 
 
